@@ -25,51 +25,13 @@ class ModelConfig:
     rope_theta: float = 10000.0
     rms_eps: float = 1e-5
     max_seq_len: int = 4096
-    # decode matvecs: quantize activations per-32-block to int8 and use the
-    # MXU integer-dot kernel (llama.cpp Q4_K x Q8_K semantics, ~0.5% per-op
-    # rel err, ~1.25x faster than the exact f32 chunk kernel)
+    # decode matvecs: quantize activations per-32-block to int8 first
+    # (llama.cpp's Q4_K x Q8 decode numerics, ~0.5% per-op rel err)
     x_quant8: bool = False
-    # megakernel gates (both need the matching quantize_params layouts;
-    # static jit args, so flipping one retraces — used by the decode
-    # ladder ablations in tools/decode_ladder.py). Defaults from THREE
-    # same-process 7B ladders (r3 + two r4 post-lm_head-fix): per-rung
-    # means unfused 103.5 / +MLP 105.9 / +attn 106.6 / both 107.8 tok/s,
-    # with run-to-run drift of the SAME config up to ~5% (107.5 vs 112.7
-    # hours apart) — rankings are not stable between runs, but both-fused
-    # has the best mean AND best single (112.7) and never lost to
-    # unfused, so both gates default on. Full ladders in PERF.md
-    # "megakernels". A resident-copy w_down rework measured strictly
-    # worse and was reverted (dead end, PERF.md).
-    fuse_attn: bool = True
-    fuse_mlp: bool = True
-    # Permuted-hidden layout: the hidden state h lives in the quant
-    # kernels' interleaved column order (quant_matmul._perm(dim))
-    # end-to-end. Requires params transformed by
-    # llama.permute_hidden_params (embed/norm columns gathered, wo and
-    # w_down ROWS gathered by the same perm — free offline transforms).
-    # Removes every per-call activation permute and is the layout
-    # prerequisite for a whole-layer megakernel (no in-kernel lane
-    # permute exists on Mosaic). rms_norm is permutation-invariant, so
-    # prefill and decode stay numerically equivalent (reduction-order
-    # eps only).
-    hperm: bool = False
-    # Whole-layer megakernel (ops/layer_kernel.py, packed uniform weight
-    # stream): one Pallas call per decoder layer at decode B==1. Requires
-    # hperm=True (permuted-hidden params, which also builds the packed
-    # stream) and the fused q4_k layout; falls through per-layer when
-    # layer_step_supported rejects the shapes, so the default is safe.
-    # Round-5 ladder (same process, 7B): 124.1 tok/s vs 108.9 for the
-    # best two-megakernel config (+14%); same-process layer marginal
-    # 221.8 vs 296.9 us/layer (PERF.md "Whole-layer megakernel").
-    fuse_layer: bool = True
-    # B==1 decode attention: at or below this PADDED cache length the
-    # whole layer streams through one XLA fusion instead of the
-    # flash_decode custom call (llama._xla_decode_attention). Default 0
-    # (OFF): at short generation lengths the full padded-cache read
-    # (16.8 MB/layer at S=1024) costs more than the launch+grid overhead
-    # it saves (ladder: -1.5 to -4.5%); it only pays when valid length
-    # approaches the padded cache. Opt in for near-full-cache decode.
-    xla_attn_max_cache: int = 0
+    # implementation of every kernel-backed op: None = each op's platform
+    # choice (utils/platform.py), "xla" = the plain path everywhere (the
+    # kernel-free reference chip_smoke.py compares against)
+    impl: str | None = None
     # mixture-of-experts (0 = dense MLP); see models/moe.py
     n_experts: int = 0
     n_active_experts: int = 2

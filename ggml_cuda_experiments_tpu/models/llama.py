@@ -1,7 +1,7 @@
 """Llama-family model: functional forward pass + KV-cached decode engine.
 
 The end-to-end slice of SURVEY §7: quantized linears (fused dequant matvec),
-RoPE, RMSNorm, flash-attention prefill, split-KV flash decode — everything
+RoPE, RMSNorm, fused-attention prefill, split-KV flash decode — everything
 jit-compiled, static shapes, cache donated across steps. The reference has no
 model layer (it tests kernels against llama.cpp *dumps*,
 /root/reference/src/flash-matrix.cu:69-73); this module is what turns the
@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
 import jax
@@ -24,54 +26,26 @@ import jax.numpy as jnp
 import numpy as np
 
 from ggml_cuda_experiments_tpu.models.config import ModelConfig
-from ggml_cuda_experiments_tpu.ops.flash_attention import flash_attention
+from ggml_cuda_experiments_tpu.ops.attention import attention
 from ggml_cuda_experiments_tpu.ops.flash_decode import flash_decode
 from ggml_cuda_experiments_tpu.ops.quant_matmul import (
-    QuantLinear, qmatmul, qmatmul_xla, quantize,
+    QuantLinear, qmatmul, quantize,
 )
 
 Params = dict[str, Any]
 
-# below this batch*seq size the fused-dequant streaming kernel wins; above,
-# XLA's dequant+matmul (MXU-bound) is better
-_QMATVEC_MAX_ROWS = 32
-# up to this many rows the pipelined dequant+MXU GEMM beats XLA's
-# dequant round trip AND its resident activation block fits VMEM
-_QPIPE_MAX_ROWS = 512
-
 
 def apply_linear(x: jax.Array, w, xq8: bool = False,
-                 x_prepermuted: bool = False) -> jax.Array:
+                 impl: str | None = None) -> jax.Array:
     """y = x @ W^T for dense [N, K] or QuantLinear weights; x: [..., K].
-    ``x_prepermuted``: x is already in the quant layout's interleaved
-    column order (QuantLinear weights only)."""
+    Quantized weights go through ``qmatmul``, which picks the fused decode
+    kernel or XLA's dequantize + dot by row count (quant_matmul.choose_impl)
+    unless ``impl`` says which."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if isinstance(w, QuantLinear):
-        if x2.shape[0] <= _QMATVEC_MAX_ROWS:
-            y = qmatmul(x2, w, x_quant8=xq8, x_prepermuted=x_prepermuted)
-        elif x2.shape[0] <= _QPIPE_MAX_ROWS and w.fmt != "q6_k":
-            # prefill-sized GEMM: software-pipelined dequant (VPU) + bf16
-            # dot (MXU) — weights stream HBM once at 0.56 B/weight instead
-            # of the XLA fallback's dequantize-to-HBM round trip
-            # (~4.5 B/weight); 7B TTFT measurement drove this cutoff.
-            # Falls back to qmatmul_xla internally for non-repeat-aligned K.
-            y = qmatmul(x2, w, pipelined=True,
-                        x_prepermuted=x_prepermuted)
-        else:
-            if x_prepermuted:
-                from ggml_cuda_experiments_tpu.ops.quant_matmul import _inv_perm
-                x2 = jnp.take(x2, jnp.asarray(_inv_perm(x2.shape[-1])),
-                              axis=-1)
-            y = qmatmul_xla(x2, w)
+        y = qmatmul(x2, w, x_quant8=xq8, impl=impl)
     else:
-        if x_prepermuted:
-            # dense weights store logical columns — restore logical order
-            # (cfg.hperm with a non-quantized projection, e.g. GGUF float
-            # tensors loaded without requantize; round-4 advisor)
-            from ggml_cuda_experiments_tpu.ops.quant_matmul import _inv_perm
-            x2 = jnp.take(x2, jnp.asarray(_inv_perm(x2.shape[-1])),
-                          axis=-1)
         y = jax.lax.dot_general(
             x2.astype(w.dtype), w,
             dimension_numbers=(((1,), (1,)), ((), ())),
@@ -81,36 +55,27 @@ def apply_linear(x: jax.Array, w, xq8: bool = False,
 
 
 def qkv_proj(layer: Params, x: jax.Array, cfg: ModelConfig):
-    """Query/value projections; uses the fused wqkv weight when present
-    (one weight stream + one kernel launch instead of three).
-
-    With ``cfg.hperm`` the incoming x is already in the interleaved
-    column order the quant kernels want (see permute_hidden_params), so
-    the per-call activation permute is skipped."""
-    pre = cfg.hperm
+    """Query/key/value projections; uses the fused wqkv weight when present
+    (one weight stream + one kernel launch instead of three)."""
     if "wqkv" in layer:
-        y = apply_linear(x, layer["wqkv"], xq8=cfg.x_quant8,
-                         x_prepermuted=pre)
+        y = apply_linear(x, layer["wqkv"], cfg.x_quant8, cfg.impl)
         s1 = cfg.n_heads * cfg.head_dim
         s2 = s1 + cfg.n_kv_heads * cfg.head_dim
         return y[..., :s1], y[..., s1:s2], y[..., s2:]
-    return (apply_linear(x, layer["wq"], xq8=cfg.x_quant8, x_prepermuted=pre),
-            apply_linear(x, layer["wk"], xq8=cfg.x_quant8, x_prepermuted=pre),
-            apply_linear(x, layer["wv"], xq8=cfg.x_quant8, x_prepermuted=pre))
+    return (apply_linear(x, layer["wq"], cfg.x_quant8, cfg.impl),
+            apply_linear(x, layer["wk"], cfg.x_quant8, cfg.impl),
+            apply_linear(x, layer["wv"], cfg.x_quant8, cfg.impl))
 
 
 def gate_up_proj(layer: Params, x: jax.Array, xq8: bool = False,
-                 x_prepermuted: bool = False):
+                 impl: str | None = None):
     """Gate/up projections; fused w_gu when present."""
     if "w_gu" in layer:
-        y = apply_linear(x, layer["w_gu"], xq8=xq8,
-                         x_prepermuted=x_prepermuted)
+        y = apply_linear(x, layer["w_gu"], xq8, impl)
         h = y.shape[-1] // 2
         return y[..., :h], y[..., h:]
-    return (apply_linear(x, layer["w_gate"], xq8=xq8,
-                         x_prepermuted=x_prepermuted),
-            apply_linear(x, layer["w_up"], xq8=xq8,
-                         x_prepermuted=x_prepermuted))
+    return (apply_linear(x, layer["w_gate"], xq8, impl),
+            apply_linear(x, layer["w_up"], xq8, impl))
 
 
 def rms_norm(x: jax.Array, w: jax.Array, eps: float) -> jax.Array:
@@ -230,58 +195,6 @@ def _quantize_rowwise(x: jax.Array, fmt: str = "int8"
 # transformer blocks
 # ---------------------------------------------------------------------------
 
-def _xla_decode_attention(q: jax.Array, cache: "KVCache", li,
-                          lengths: jax.Array, scale: float) -> jax.Array:
-    """Full-read XLA decode attention for SMALL padded caches (B == 1).
-
-    Below ~1024 cached positions the flash_decode custom call is almost
-    pure overhead: its launch + grid-step fixed cost (~50-70 us/layer at
-    7B MHA) exceeds the cost of simply streaming the whole padded layer
-    (16.8 MB at S=1024 ~ 20 us) through one XLA fusion with a mask — no
-    Pallas launch, no per-step bookkeeping, and XLA fuses the dequant /
-    mask / softmax chain. The length-clamped flash kernel wins again for
-    big caches, where dead padded DMA dominates (static-shape dispatch in
-    _attention_block via cfg.xla_attn_max_cache).
-
-    q: [1, Hq, D]; returns [1, Hq, D] f32.
-    """
-    k = cache.k[li]                       # [1, Hkv, S, D]
-    v = cache.v[li]
-    B, Hkv, S, D = k.shape
-    Hq = q.shape[1]
-    r = Hq // Hkv
-    qf = q.reshape(B, Hkv, r, D).astype(jnp.float32) * scale
-    kf = k.astype(jnp.float32)
-    vf = v.astype(jnp.float32)
-    if cache.quantized:
-        kf = kf * cache.k_scale[li][..., None]
-        vf = vf * cache.v_scale[li][..., None]
-    s = jnp.einsum("bhrd,bhsd->bhrs", qf, kf,
-                   preferred_element_type=jnp.float32)
-    pos = jnp.arange(S, dtype=jnp.int32)
-    s = jnp.where(pos[None, None, None, :] < lengths[:, None, None, None],
-                  s, -jnp.inf)
-    p = jax.nn.softmax(s, axis=-1)
-    o = jnp.einsum("bhrs,bhsd->bhrd", p, vf,
-                   preferred_element_type=jnp.float32)
-    return o.reshape(B, Hq, D)
-
-
-# Fused prefill RoPE+repack kernel (ops/prefill_fuse.py) — module-level
-# A/B lever for tests/probes; the shape gate lives in _attention_block.
-PREFILL_FUSE_ROPE = True
-
-# No fused prefill MLP: both designs measured and lost (round 5 — see
-# PERF.md "TTFT r5"): alternating gate/up steps with pl.when epilogues
-# hit the three-fat-bodies Mosaic serialization (1.31 ms/layer vs the
-# two-call path's 0.87-0.95); the unbranched rewrite (gate+up windows
-# per step, silu fused into the resident mid scratch) recovered to
-# 1.04-1.13 — still neutral-to-worse, because the saved [T, Ng]+[T, Kd]
-# HBM round trip (~90 us) is repaid by the w_down phase's serialized
-# start behind the whole phase-A scratch chain. Two pipelined calls +
-# XLA glue stay the prefill MLP path.
-
-
 def _attention_block(layer: Params, cfg: ModelConfig, h: jax.Array,
                      cache: "KVCache", li, positions, *, decode: bool,
                      reduce_axis: str | None = None, b0=0, valid=None):
@@ -303,59 +216,14 @@ def _attention_block(layer: Params, cfg: ModelConfig, h: jax.Array,
         lengths = cache.lengths
 
     x = rms_norm(h, layer["attn_norm"], cfg.rms_eps)
-
-    if (decode and cfg.fuse_attn and not micro and reduce_axis is None
-            and B == 1 and T == 1
-            and not quantized and cfg.x_quant8 and "wqkv" in layer):
-        from ggml_cuda_experiments_tpu.ops.fused_attention import (
-            attention_fused, attention_fused_supported)
-        if attention_fused_supported(layer["wqkv"], layer["wo"], Hq, Hkv, D,
-                                     cache.k.dtype):
-            # whole attention block (wqkv -> rope -> append -> split-KV
-            # decode -> wo) in ONE Pallas call; kernel splices the fresh
-            # token in-stream, we append it to the cache for later steps
-            o2, kn, vn = attention_fused(
-                x[:, 0, :], layer["wqkv"], layer["wo"], cache.k, cache.v,
-                lengths, li, n_heads=Hq, n_kv_heads=Hkv, head_dim=D,
-                rope_theta=cfg.rope_theta, x_prepermuted=cfg.hperm)
-            cache = KVCache(
-                k=_write_cache_layer(cache.k, li, kn[None, :, None, :],
-                                     pos0 := positions[:, 0]),
-                v=_write_cache_layer(cache.v, li, vn[None, :, None, :],
-                                     pos0),
-                lengths=cache.lengths, k_scale=None, v_scale=None)
-            return o2[:, None, :].astype(h.dtype), cache
-
-    fuse_rope = (PREFILL_FUSE_ROPE and not decode and not micro
-                 and reduce_axis is None
-                 and B == 1 and T % 128 == 0 and D == 128
-                 and "wqkv" in layer and not quantized)
-    if fuse_rope:
-        # one fused kernel replaces reshape + rope(q) + rope(k) + three
-        # [T,H,D]->[H,T,D] transposes (each a ~4-8 MB HBM materialization
-        # per layer — the measured prefill glue, PERF.md "TTFT")
-        from ggml_cuda_experiments_tpu.ops.prefill_fuse import (
-            rope_pack_prefill)
-        y = apply_linear(x, layer["wqkv"], xq8=False,
-                         x_prepermuted=cfg.hperm)       # [1, T, NQt]
-        qT, kt1, vt1 = rope_pack_prefill(
-            y[0], positions[0],
-            n_heads=Hq, n_kv_heads=Hkv, head_dim=D,
-            rope_theta=cfg.rope_theta)
-        q = qT.transpose(1, 0, 2)[None]     # [1, T, Hq, D] (cache path
-        kt, vt = kt1[None], vt1[None]       # below only uses kt/vt; the
-        # q transpose is consumed by flash as q.transpose back — XLA
-        # cancels the round trip, so flash reads qT directly)
-    else:
-        q, k, v = qkv_proj(layer, x, cfg)
-        q = q.reshape(B, T, Hq, D)
-        k = k.reshape(B, T, Hkv, D)
-        v = v.reshape(B, T, Hkv, D)
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-
-        kt = k.transpose(0, 2, 1, 3)        # [B, Hkv, T, D]
-        vt = v.transpose(0, 2, 1, 3)
+    q, k, v = qkv_proj(layer, x, cfg)
+    q = q.reshape(B, T, Hq, D)
+    k = k.reshape(B, T, Hkv, D)
+    v = v.reshape(B, T, Hkv, D)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    kt = k.transpose(0, 2, 1, 3)        # [B, Hkv, T, D]
+    vt = v.transpose(0, 2, 1, 3)
     pos0 = positions[:, 0]
     if quantized:
         kq, ksc = _quantize_rowwise(kt, cache.quant_fmt)
@@ -378,24 +246,14 @@ def _attention_block(layer: Params, cfg: ModelConfig, h: jax.Array,
 
     if decode:
         if not micro:
-            S_pad = cache.k.shape[3]
-            if B == 1 and S_pad <= cfg.xla_attn_max_cache:
-                # small padded cache: one XLA fusion beats the custom
-                # call's launch + grid overhead (see _xla_decode_attention)
-                o = _xla_decode_attention(
-                    q[:, 0], cache, li, lengths + 1,
-                    float(1.0 / D ** 0.5))[:, None]
-            else:
-                # full stacked cache into the kernel; the layer is picked
-                # in the BlockSpec index map (scalar prefetch). An XLA
-                # slice (cache.k[li]) feeding the custom call materializes
-                # the whole layer — ~16 MB of dead HBM traffic per layer
-                # at 7B shapes.
-                o = flash_decode(
-                    q[:, 0],               # [B, Hq, D]
-                    cache.k, cache.v, lengths + 1, layer=li,
-                    k_scale=cache.k_scale, v_scale=cache.v_scale,
-                )[:, None]                 # [B, 1, Hq, D]
+            # full stacked cache into the kernel, which offsets to the
+            # layer itself: an XLA slice (cache.k[li]) feeding the custom
+            # call would copy the whole layer (~16 MB at 7B, S=2048)
+            o = flash_decode(
+                q[:, 0],                   # [B, Hq, D]
+                cache.k, cache.v, lengths + 1, layer=li,
+                k_scale=cache.k_scale, v_scale=cache.v_scale, impl=cfg.impl,
+            )[:, None]                     # [B, 1, Hq, D]
         else:
             def layer_rows(arr):
                 """This layer's rows [B, Hkv, S, ...] for batch b0:b0+B."""
@@ -408,18 +266,19 @@ def _attention_block(layer: Params, cfg: ModelConfig, h: jax.Array,
                 layer_rows(cache.k), layer_rows(cache.v), lengths + 1,
                 k_scale=None if not quantized else layer_rows(cache.k_scale),
                 v_scale=None if not quantized else layer_rows(cache.v_scale),
+                impl=cfg.impl,
             )[:, None]                     # [B, 1, Hq, D]
     else:
         # prefill attends over the fresh bf16 K/V (the cache, possibly
         # int8, starts empty for prefill — chunked prefill over an existing
         # quantized prefix is the paged pipeline's job)
-        o = flash_attention(
-            q.transpose(0, 2, 1, 3), kt, vt,
-            causal=True,
+        o = attention(
+            q.transpose(0, 2, 1, 3), kt, vt, causal=True,
+            impl=None if cfg.impl is None else "xla",
         ).transpose(0, 2, 1, 3)            # [B, T, Hq, D]
 
     o = o.reshape(B, T, Hq * D).astype(h.dtype)
-    out = apply_linear(o, layer["wo"], xq8=cfg.x_quant8)
+    out = apply_linear(o, layer["wo"], cfg.x_quant8, cfg.impl)
     if reduce_axis is not None:
         out = jax.lax.psum(out, reduce_axis)
     return out, cache
@@ -439,36 +298,10 @@ def _mlp_block(layer: Params, cfg: ModelConfig, h: jax.Array,
             # are expert-sharded only, so nothing to reduce on ``model``.
             pass
         return out
-    if "w_gu_f" in layer:
-        # fused-MLP layout: w_gu rows pre-permuted into w_down's
-        # interleaved activation order (quant_matmul.reorder_gu_rows)
-        from ggml_cuda_experiments_tpu.ops.quant_matmul import (
-            _inv_perm, mlp_fused, mlp_fused_supported, permute_activations)
-        lead = x.shape[:-1]
-        x2 = x.reshape(-1, x.shape[-1])
-        w_guf, w_down = layer["w_gu_f"], layer["w_down"]
-        if (x2.shape[0] == 1 and cfg.fuse_mlp
-                and mlp_fused_supported(w_guf, w_down)):
-            # decode: one Pallas call for the whole MLP
-            xp = (x2.astype(jnp.float32) if cfg.hperm
-                  else permute_activations(x2.astype(jnp.float32)))
-            out = mlp_fused(xp, w_guf, w_down).astype(x.dtype)
-        else:
-            y = apply_linear(x2, w_guf, xq8=cfg.x_quant8,
-                             x_prepermuted=cfg.hperm)
-            kd = y.shape[-1] // 2
-            mid_p = (jax.nn.silu(y[..., :kd].astype(jnp.float32))
-                     .astype(x.dtype) * y[..., kd:])
-            # y is already in w_down's interleaved activation order
-            out = apply_linear(mid_p, w_down, xq8=cfg.x_quant8,
-                               x_prepermuted=True)
-        out = out.reshape(*lead, -1)
-    else:
-        gate, up = gate_up_proj(layer, x, xq8=cfg.x_quant8,
-                                x_prepermuted=cfg.hperm)
-        out = apply_linear(
-            jax.nn.silu(gate.astype(jnp.float32)).astype(x.dtype) * up,
-            layer["w_down"], xq8=cfg.x_quant8)
+    gate, up = gate_up_proj(layer, x, cfg.x_quant8, cfg.impl)
+    out = apply_linear(
+        jax.nn.silu(gate.astype(jnp.float32)).astype(x.dtype) * up,
+        layer["w_down"], cfg.x_quant8, cfg.impl)
     if reduce_axis is not None:
         out = jax.lax.psum(out, reduce_axis)
     return out
@@ -480,89 +313,15 @@ def _forward(params: Params, cfg: ModelConfig, tokens: jax.Array,
              expert_axis: str | None = None,
              all_logits: bool = False) -> tuple[jax.Array, KVCache]:
     h = params["embed"][tokens]            # [B, T, dim]
-    B, T = tokens.shape
-    use_layer_kernel = (
-        decode and cfg.fuse_layer and cfg.hperm and cfg.x_quant8
-        and reduce_axis is None and expert_axis is None
-        and B == 1 and T == 1 and not cache.quantized)
-    if use_layer_kernel and "m_pack" in params and all(
-            _layer_kernel_ok(layer, cfg, cache)
-            for layer in params["layers"]):
-        # whole-MODEL kernel: every decoder layer in ONE Pallas launch
-        # (kills 31 launch taxes + the inter-layer XLA glue), then ONE
-        # cache append per array
-        from ggml_cuda_experiments_tpu.ops.layer_kernel import model_step
-        hm, kn_all, vn_all = model_step(
-            h[:, 0, :], params["m_pack"], cache.k, cache.v,
-            cache.lengths,
-            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-            rms_eps=cfg.rms_eps)
-        pos0 = cache.lengths[0]
-        idx = (0, 0, 0, pos0, 0)
-        cache = dataclasses.replace(
-            cache,
-            k=jax.lax.dynamic_update_slice(
-                cache.k, kn_all[:, None, :, None, :].astype(cache.k.dtype),
-                idx),
-            v=jax.lax.dynamic_update_slice(
-                cache.v, vn_all[:, None, :, None, :].astype(cache.v.dtype),
-                idx))
-        h = hm[:, None, :].astype(h.dtype)
-        h = rms_norm(h, params["final_norm"], cfg.rms_eps)
-        return _head_logits(params, cfg, h, cache, tokens, all_logits)
-    deferred = []      # (li, k_new, v_new) — batched cache append below
     for li, layer in enumerate(params["layers"]):
-        if use_layer_kernel:
-            from ggml_cuda_experiments_tpu.ops.layer_kernel import (
-                layer_step, layer_step_supported)
-            if layer_step_supported(layer, cfg.n_heads, cfg.n_kv_heads,
-                                    cfg.head_dim, cache.k.dtype):
-                h2, kn, vn = layer_step(
-                    h[:, 0, :], layer["w_pack"], layer["w_down"],
-                    layer["attn_norm"], layer["mlp_norm"],
-                    cache.k, cache.v, cache.lengths, li,
-                    n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                    head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-                    rms_eps=cfg.rms_eps)
-                # The kernel splices (kn, vn) into its own attention read
-                # (the on_new blend), so the HBM cache append can wait —
-                # deferred and written as ONE dynamic-update-slice per
-                # array after the layer loop instead of one per layer
-                # (64 tiny DUS/step were measurable scan glue).
-                deferred.append((li, kn, vn))
-                h = h2[:, None, :].astype(h.dtype)
-                continue
         attn, cache = _attention_block(
             layer, cfg, h, cache, li, positions, decode=decode,
             reduce_axis=reduce_axis)
         h = h + attn
         h = h + _mlp_block(layer, cfg, h, reduce_axis=reduce_axis,
                            expert_axis=expert_axis)
-    if deferred:
-        # NOTE: a single batched [L, ...] DUS from a jnp.stack of the 32
-        # per-layer (kn, vn) was tried here and MISCOMPILES on the real
-        # TPU at 7B scale — XLA's layer-loop fusion put the stacked carry
-        # in VMEM and blew the 16M scoped-vmem stack inside the fusion
-        # feeding the next pallas call ("should not be possible to run
-        # out of scoped vmem — please file a bug against XLA"). The
-        # per-layer DUS after the loop keeps the proven aliasing path.
-        pos0 = positions[:, 0]
-        k_arr, v_arr = cache.k, cache.v
-        for li, kn, vn in deferred:
-            k_arr = _write_cache_layer(k_arr, li,
-                                       kn[None, :, None, :], pos0)
-            v_arr = _write_cache_layer(v_arr, li,
-                                       vn[None, :, None, :], pos0)
-        cache = dataclasses.replace(cache, k=k_arr, v=v_arr)
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
     return _head_logits(params, cfg, h, cache, tokens, all_logits)
-
-
-def _layer_kernel_ok(layer, cfg: ModelConfig, cache: KVCache) -> bool:
-    from ggml_cuda_experiments_tpu.ops.layer_kernel import fused_layout_ok
-    return fused_layout_ok(layer, cfg.n_heads, cfg.n_kv_heads,
-                           cfg.head_dim, cache.k.dtype)
 
 
 def _head_logits(params: Params, cfg: ModelConfig, h: jax.Array,
@@ -570,19 +329,7 @@ def _head_logits(params: Params, cfg: ModelConfig, h: jax.Array,
                  ) -> tuple[jax.Array, KVCache]:
     """Final-norm output ``h`` -> logits; bumps cache lengths."""
     hl = h if all_logits else h[:, -1]
-    head_pre = False
-    if cfg.hperm:
-        head = params["lm_head"]
-        if (isinstance(head, QuantLinear) and head.layout == "std"
-                and head.fmt != "q6_k"):
-            head_pre = True          # same interleave as the hidden order
-        else:
-            # q6_k head (different lane order) or dense-with-logical
-            # columns: fall back to logical order for this one call
-            from ggml_cuda_experiments_tpu.ops.quant_matmul import _inv_perm
-            hl = jnp.take(hl, jnp.asarray(_inv_perm(hl.shape[-1])), axis=-1)
-    logits = apply_linear(hl, params["lm_head"], xq8=cfg.x_quant8,
-                          x_prepermuted=head_pre)   # [B(, T), vocab]
+    logits = apply_linear(hl, params["lm_head"], cfg.x_quant8, cfg.impl)
     cache = dataclasses.replace(
         cache, lengths=cache.lengths + tokens.shape[1])
     return logits.astype(jnp.float32), cache
@@ -664,44 +411,54 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def _pool_map(fn, items: list) -> list:
+    """``[fn(i) for i in items]`` on a thread pool: NumPy's generators and
+    array copies release the GIL, so per-layer host work runs in parallel."""
+    with ThreadPoolExecutor(min(16, os.cpu_count() or 1)) as ex:
+        return list(ex.map(fn, items))
+
+
 def init_weights(cfg: ModelConfig, seed: int = 0, dtype=jnp.bfloat16,
                  as_numpy: bool = False) -> Params:
     """Random-init weights (scaled normal), dense. Use ``quantize_params``
     or the weight loader (utils/loader.py) for quantized models.
 
-    ``as_numpy`` keeps leaves as host ml_dtypes arrays — essential for
-    big models that will be quantized host-side before transfer (avoids a
-    device round trip per tensor)."""
+    Every tensor draws from its own stream, keyed by (seed, layer, tensor),
+    so the layers are generated in parallel. ``as_numpy`` keeps leaves as
+    host ml_dtypes arrays — essential for big models that will be quantized
+    host-side before transfer (avoids a device round trip per tensor)."""
     import ml_dtypes
-    rng = np.random.default_rng(seed)
     d, hd = cfg.dim, cfg.head_dim
     np_dtype = {jnp.bfloat16: ml_dtypes.bfloat16,
                 jnp.float32: np.float32}.get(dtype, np.float32)
     conv = (lambda a: a.astype(np_dtype)) if as_numpy else (
         lambda a: jnp.asarray(a, dtype))
 
-    def lin(n, k):
-        return conv(rng.normal(size=(n, k)).astype(np.float32) / np.sqrt(k))
+    def normal(key, shape, scale):
+        rng = np.random.default_rng([seed, *key])
+        x = rng.standard_normal(shape, dtype=np.float32)
+        x *= np.float32(scale)
+        return conv(x)
 
-    layers = []
-    for _ in range(cfg.n_layers):
-        layers.append({
-            "wq": lin(cfg.n_heads * hd, d),
-            "wk": lin(cfg.n_kv_heads * hd, d),
-            "wv": lin(cfg.n_kv_heads * hd, d),
-            "wo": lin(d, cfg.n_heads * hd),
-            "w_gate": lin(cfg.intermediate, d),
-            "w_up": lin(cfg.intermediate, d),
-            "w_down": lin(d, cfg.intermediate),
-            "attn_norm": conv(np.ones((d,), np.float32)),
-            "mlp_norm": conv(np.ones((d,), np.float32)),
-        })
+    def lin(key, n, k):
+        return normal(key, (n, k), 1.0 / np.sqrt(k))
+
+    ones = lambda: conv(np.ones((d,), np.float32))
+    shapes = {"wq": (cfg.n_heads * hd, d), "wk": (cfg.n_kv_heads * hd, d),
+              "wv": (cfg.n_kv_heads * hd, d), "wo": (d, cfg.n_heads * hd),
+              "w_gate": (cfg.intermediate, d), "w_up": (cfg.intermediate, d),
+              "w_down": (d, cfg.intermediate)}
+
+    def layer(i):
+        out = {name: lin((i, j), *shape)
+               for j, (name, shape) in enumerate(shapes.items())}
+        return {**out, "attn_norm": ones(), "mlp_norm": ones()}
+
     return {
-        "embed": conv(
-            rng.normal(size=(cfg.vocab_size, d)).astype(np.float32) * 0.02),
-        "layers": layers,
-        "final_norm": conv(np.ones((d,), np.float32)),
-        "lm_head": lin(cfg.vocab_size, d),
+        "embed": normal((cfg.n_layers, 0), (cfg.vocab_size, d), 0.02),
+        "layers": _pool_map(layer, list(range(cfg.n_layers))),
+        "final_norm": ones(),
+        "lm_head": lin((cfg.n_layers, 1), cfg.vocab_size, d),
     }
 
 
@@ -709,187 +466,40 @@ _LINEAR_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
 def quantize_params(params: Params, fmt: str, *, quantize_head: bool = True,
-                    pad_intermediate: bool = True, fuse: bool = True,
-                    head_fmt: str | None = None,
-                    head_dim: int = 128) -> Params:
+                    fuse: bool = True,
+                    head_fmt: str | None = None) -> Params:
     """Quantize every big linear to ``fmt`` (embed/norms stay dense).
 
+    ``fuse``: concatenate wq|wk|wv into ``wqkv`` and w_gate|w_up into
+    ``w_gu`` — one weight stream and one kernel launch per projection.
     ``head_fmt``: optional different format for the lm_head (llama.cpp's
     Q4_K_M mix stores output.weight as Q6_K: fmt="q4_k",
     head_fmt="q6_k").
-
-    ``head_dim``: attention head size — part of the shared wof gate
-    (ops/fused_attention.wof_shape_supported), so the wof W_o layout is
-    only produced for shapes the fused-attention kernel accepts.
-
-    ``pad_intermediate``: zero-pad the MLP intermediate dimension up to a
-    multiple of 4096 when that costs < 15% extra bytes (e.g. 7B's
-    11008 -> 12288): K/32 becomes 128-aligned, which moves the down
-    projection from the slow any-K kernel (~25% of HBM roofline) to the
-    fast repeat-aligned one (~55%) — net decode-latency win. Zero columns
-    quantize to zero blocks; silu(0)*0 == 0 keeps padded lanes inert.
     """
     out = dict(params)
-    out["layers"] = []
-    for layer in params["layers"]:
+
+    def quantize_layer(layer):
         ql = dict(layer)
-        inter = layer["w_gate"].shape[0]
-        inter_p = -(-inter // 4096) * 4096
-        if not pad_intermediate or inter_p > 1.15 * inter:
-            inter_p = inter
+
         def get(key):
-            w = np.asarray(layer[key], np.float32)
-            if inter_p != inter:
-                if key in ("w_gate", "w_up"):
-                    w = np.pad(w, ((0, inter_p - inter), (0, 0)))
-                elif key == "w_down":
-                    w = np.pad(w, ((0, 0), (0, inter_p - inter)))
-            return w
+            return np.asarray(layer[key], np.float32)
 
         if fuse:
-            # fused projections: one weight stream / kernel launch each for
-            # qkv and gate+up (launch overhead is ~8us per kernel — it
-            # dominates the small kv projections at decode batch 1)
-            ql.pop("wq"), ql.pop("wk"), ql.pop("wv")
-            ql.pop("w_gate"), ql.pop("w_up")
+            for key in ("wq", "wk", "wv", "w_gate", "w_up"):
+                ql.pop(key)
             ql["wqkv"] = quantize(
                 np.concatenate([get("wq"), get("wk"), get("wv")]), fmt)
-            dim = layer["w_down"].shape[0]
-            if (fmt == "q4_k" and inter_p % 4096 == 0
-                    and dim % 4096 == 0):
-                # fused-MLP kernel layout: gate/up rows pre-permuted into
-                # w_down's interleaved activation order, so the whole MLP
-                # runs as ONE Pallas call at decode (ops/quant_matmul.py::
-                # mlp_fused)
-                from ggml_cuda_experiments_tpu.ops.quant_matmul import (
-                    reorder_gu_rows)
-                ql["w_gu_f"] = quantize(
-                    reorder_gu_rows(get("w_gate"), get("w_up")), fmt)
-            else:
-                ql["w_gu"] = quantize(
-                    np.concatenate([get("w_gate"), get("w_up")]), fmt)
+            ql["w_gu"] = quantize(
+                np.concatenate([get("w_gate"), get("w_up")]), fmt)
+            ql["wo"] = quantize(get("wo"), fmt)
             ql["w_down"] = quantize(get("w_down"), fmt)
-            from ggml_cuda_experiments_tpu.ops.fused_attention import (
-                wof_shape_supported)
-            dim_o, ko = layer["wo"].shape
-            nq = layer["wq"].shape[0] // head_dim
-            nk = layer["wk"].shape[0] // head_dim
-            if fmt == "q4_k" and wof_shape_supported(dim_o, ko, nq, nk,
-                                                     head_dim):
-                # fused-attention layout: W_o columns in the "wof" order so
-                # the attention megakernel feeds it straight from the
-                # transposed per-head output (ops/fused_attention.py) —
-                # a lossless column shuffle of the same Q4_K blocks
-                ql["wo"] = quantize(get("wo"), fmt, layout="wof")
-            else:
-                ql["wo"] = quantize(get("wo"), fmt)
         else:
             for key in _LINEAR_KEYS:
                 ql[key] = quantize(get(key), fmt)
-        out["layers"].append(ql)
+        return ql
+
+    out["layers"] = _pool_map(quantize_layer, params["layers"])
     if quantize_head:
         out["lm_head"] = quantize(np.asarray(params["lm_head"], np.float32),
                                   head_fmt or fmt)
-    return out
-
-
-def permute_hidden_params(params: Params, cfg: ModelConfig) -> Params:
-    """Rewrite quantized params into the permuted-hidden layout
-    (``cfg.hperm``): the hidden state then lives in the quant kernels'
-    interleaved column order (quant_matmul._perm(dim)) end-to-end, so no
-    per-call activation permute is ever needed and a whole decoder layer
-    can chain inside one kernel (Mosaic has no in-kernel lane permute).
-
-    Free offline transforms, all exact:
-      - embed columns and the three norm weights gathered by perm;
-      - wo and w_down ROWS gathered by the same perm (row permutation of
-        an output-major weight permutes its OUTPUT lanes — each row's
-        encoding is untouched);
-      - everything consuming x (wqkv/w_gu*/lm_head) already stores
-        interleaved columns, so it just takes x_prepermuted=True.
-    The lm_head is left as-is (a q6_k head uses a different lane order;
-    the forward un-permutes the single [1, dim] vector for that call).
-
-    Requires the dense-MLP fused or unfused q4/q8-class layout; MoE and
-    q6_k layer weights are not supported (their activation orders
-    differ)."""
-    from ggml_cuda_experiments_tpu.ops.quant_matmul import _fields, _perm
-
-    perm = np.asarray(_perm(cfg.dim))
-
-    def prow(w):
-        if isinstance(w, QuantLinear):
-            assert w.fmt in ("q4_k", "q8_0", "q4_0"), \
-                f"hperm: unsupported row-permute fmt {w.fmt}"
-            return dataclasses.replace(
-                w, **{f: getattr(w, f)[perm] for f in _fields(w)})
-        return w[perm]
-
-    def pvec(w):
-        return w[..., perm]
-
-    out = dict(params)
-    out["embed"] = pvec(params["embed"])
-    out["final_norm"] = pvec(params["final_norm"])
-    out["layers"] = []
-    for layer in params["layers"]:
-        assert "router" not in layer, "hperm: MoE layers unsupported"
-        # x-consuming weights take x_prepermuted=True: their quant layout
-        # must be the std interleave (q6_k is fine — qmatmul un-permutes
-        # for its own lane order; "wof" would silently mis-multiply)
-        for name in ("wq", "wk", "wv", "wqkv", "w_gate", "w_up", "w_gu"):
-            w = layer.get(name)
-            if isinstance(w, QuantLinear):
-                assert w.layout == "std", \
-                    f"hperm: {name} layout {w.layout!r} unsupported"
-        l2 = dict(layer)
-        l2["attn_norm"] = pvec(layer["attn_norm"])
-        l2["mlp_norm"] = pvec(layer["mlp_norm"])
-        l2["wo"] = prow(layer["wo"])
-        l2["w_down"] = prow(layer["w_down"])
-        out["layers"].append(l2)
-    return build_model_pack(out, cfg)
-
-
-def build_model_pack(params: Params, cfg: ModelConfig) -> Params:
-    """Stack [wqkv | wof-W_o | w_gu_f] of every layer plus w_down + norms
-    into ONE set of arrays (``params["m_pack"]``) so the whole-model
-    kernel (ops/layer_kernel.model_step) runs all decoder layers in a
-    single Pallas launch. Built directly from the layer weights — no
-    per-layer intermediate packs (those transiently doubled the packed
-    bytes and OOMed a batch-8 cache next to the base weights at 7B).
-    No-op unless every layer has the uniform fused q4_k-e layout."""
-    layers = params["layers"]
-
-    def ok(l):
-        return (all(isinstance(l.get(k), QuantLinear)
-                    and l[k].fmt == "q4_k" and l[k].enc == "e"
-                    for k in ("wqkv", "wo", "w_gu_f", "w_down"))
-                and l["w_down"].array_shape[1] % 4096 == 0)
-
-    if not layers or not all(ok(l) for l in layers):
-        return params
-    shapes0 = tuple(layers[0][k].array_shape
-                    for k in ("wqkv", "wo", "w_gu_f", "w_down"))
-    if not all(tuple(l[k].array_shape
-                     for k in ("wqkv", "wo", "w_gu_f", "w_down"))
-               == shapes0 for l in layers):
-        return params
-    out = dict(params)
-    stream = ("wqkv", "wo", "w_gu_f")
-    out["m_pack"] = {
-        "qs": jnp.concatenate([l[k].qs for l in layers for k in stream],
-                              axis=0),
-        "es": jnp.concatenate([l[k].es for l in layers for k in stream],
-                              axis=0),
-        "em": jnp.concatenate([l[k].em for l in layers for k in stream],
-                              axis=0),
-        "dqs": jnp.concatenate([l["w_down"].qs for l in layers], axis=0),
-        "des": jnp.concatenate([l["w_down"].es for l in layers], axis=0),
-        "dem": jnp.concatenate([l["w_down"].em for l in layers], axis=0),
-        "anorm": jnp.stack([jnp.asarray(l["attn_norm"], jnp.float32)
-                            for l in layers]),
-        "mnorm": jnp.stack([jnp.asarray(l["mlp_norm"], jnp.float32)
-                            for l in layers]),
-    }
     return out

@@ -2,13 +2,13 @@
 
 The reference is dense-only (no MoE anywhere in /root/reference); this is
 part of the driver-mandated parallelism surface (tp/pp/dp/sp/ep). The block
-is TPU-first:
+keeps static shapes:
 
 - **Dense dispatch, not gather/scatter.** For decode-sized token counts the
   number of tokens is far below the expert count x intermediate size, so
   routing via dynamic gathers (the GPU idiom) would force dynamic shapes XLA
-  cannot tile for the MXU. Instead every (local) expert runs on every token
-  as one stacked batched matmul — static shapes, MXU-friendly — and the
+  cannot tile well. Instead every (local) expert runs on every token
+  as one stacked batched matmul — static shapes, tensor-core friendly — and the
   router's top-k weights (zero for unselected experts) fold the results.
   FLOP "waste" is E_local/k, but decode matvecs are HBM-bound: bytes
   streamed per device are exactly the local experts' weights, which is the

@@ -1,4 +1,5 @@
-"""Pallas TPU kernels and kernel-level primitives."""
+"""Kernels (Pallas through Triton), their plain-XLA twins, and
+kernel-level primitives."""
 
 from ggml_cuda_experiments_tpu.ops.lse import (
     AttnPartial,

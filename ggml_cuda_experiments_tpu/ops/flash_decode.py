@@ -1,34 +1,26 @@
-"""Split-KV flash-decode Pallas kernel for autoregressive decoding.
+"""Split-KV flash decode: one query token per sequence against a KV cache.
 
-TPU-native re-design of the reference's flash-decoding pipeline
-(``flash_attn_row`` + ``fa_reduce``, /root/reference/src/flash_row_float.h) —
-the batch≈1, one-query-token path where attention is a mat*vec* over the KV
-cache and the win comes from splitting KV across parallel units and merging
-partials with the associative LSE combine.
+The reference's flash-decoding pipeline (``flash_attn_row`` + ``fa_reduce``,
+/root/reference/src/flash_row_float.h) carried over to Hopper through
+Pallas' Triton route:
 
-Idiomatic choices (deliberately NOT translated from CUDA — SURVEY §7 "hard
-parts"):
-- The reference replicates the single query into a 16-row tile and reads
-  QK^T off the MMA accumulator diagonal, wasting 15/16 of each MMA
-  (flash_row_float.h:21-38,63-76). Here the GQA head *group* supplies the
-  sublane dimension instead: q [B, Hq, D] is viewed as [B, Hkv, G, D]
-  (G = Hq/Hkv query heads sharing one KV head), so QK^T is a dense
-  [G, D] x [D, bk] MXU matmul with zero waste, and GQA broadcast
-  (kernel_test.h:25-27,53) falls out of the layout for free.
-- The reference's grid = (kv_blocks, heads) map kernel emitting per-block
-  (O, M, S) to a "temporal buffer" + a sequential ``fa_reduce``
-  (flash_row_float.h:191-198,429-471, self-annotated "very slow!!"). Here:
-  split partials land in a [B, Hkv, n_splits, ...] output and the merge is
-  the pure ``lse_combine_stacked`` from ops/lse.py — vectorized over all
-  heads at once by XLA, not a serial loop.
-- Variable context lengths are masked in-kernel from an SMEM scalar
-  (``lengths``), with fully-out-of-range KV blocks skipped entirely — the
-  analog of the reference's -INF block skip.
-
-Layout: the KV cache last dim is head_dim (128 lanes) for both K and V, so
-QK^T contracts on lanes and P·V contracts on sublanes — no V transpose
-requirement (the reference needs V transposed-contiguous,
-flash_row_float.h:176-177; on TPU dot_general picks the contraction).
+- Grid (B, Hkv, splits). Each block owns one KV head of one sequence and an
+  equal share of that sequence's *valid* KV blocks (the share is computed
+  from the length inside the kernel, so padding past the length is never
+  read). It loops over its range in ``block_k`` steps with an online
+  softmax, and writes an un-normalized (O, M, S) partial — the reference's
+  per-block temporal buffer.
+- The GQA head group is the M dimension of the tensor-core dots: q [B, Hq,
+  D] is viewed as [B, Hkv, G, D] and padded to 16 rows, so QK^T is a dense
+  [16, D] x [D, block_k] dot instead of the reference's 16-fold replicated
+  query (flash_row_float.h:21-38).
+- int8 / fp8 K/V with per-token scales: the payload is converted to bf16 in
+  registers and the scales are applied to the score and probability rows.
+- ``fa_reduce`` is ``lse_combine_stacked`` (ops/lse.py) in XLA over the
+  split axis.
+- The kernel takes the whole stacked cache [L, B, Hkv, S, D] and the layer
+  index as operands and offsets into it itself: an XLA slice in front of a
+  custom call would copy the layer (16 MB per layer at 7B, S=2048).
 """
 
 from __future__ import annotations
@@ -38,183 +30,196 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from ggml_cuda_experiments_tpu.ops.lse import AttnPartial, lse_combine_stacked, lse_finalize
-from ggml_cuda_experiments_tpu.utils.platform import interpret_default
+from ggml_cuda_experiments_tpu.ops.lse import (
+    AttnPartial, lse_combine_stacked, lse_finalize)
+from ggml_cuda_experiments_tpu.utils import platform
+
+GPU_IMPL = "kernel"
 
 DEFAULT_MASK_VALUE = -0.7 * float(jnp.finfo(jnp.float32).max)
 
-
-def _decode_kernel(len_ref, q_ref, k_ref, v_ref,
-                   o_ref, m_ref, s_ref,
-                   m_scr, l_scr, acc_scr, *,
-                   scale: float, bk: int, n_blocks: int,
-                   finalize: bool = False,
-                   k_scale_ref=None, v_scale_ref=None):
-    """Grid (B, Hkv, n_splits, n_blocks); KV streamed over the last dim.
-
-    ``len_ref`` is a scalar-prefetch ref: besides the in-kernel mask, the
-    KV BlockSpec index map clamps to the last *valid* block, so steps past
-    ``length`` revisit an already-resident tile and issue NO new DMA — the
-    cache costs ceil(length/bk) block fetches, not S/bk (a 1024-slot cache
-    at length 57 streams 1 block, not 4). This is the DMA-level version of
-    the reference's -INF block skip, which only skips compute
-    (/root/reference/src/flash-llama.h:276-278).
-
-    With ``k_scale_ref``/``v_scale_ref``, K/V are int8 with a per-token
-    dequant scale; the scale is applied to the *score rows* (QK^T) and the
-    *probability rows* (P·V) instead of the D-wide tiles — O(bk) multiplies
-    per block instead of O(bk·D), the int8-KV trick of the quantized paged
-    attention design (boom guide §13) on the contiguous cache.
-    """
-    b, sp, blk = pl.program_id(0), pl.program_id(2), pl.program_id(3)
-    g, d = q_ref.shape[-2], q_ref.shape[-1]
-    quantized = k_scale_ref is not None
-
-    @pl.when(blk == 0)
-    def _init():
-        m_scr[...] = jnp.full_like(m_scr, -jnp.inf)
-        l_scr[...] = jnp.zeros_like(l_scr)
-        acc_scr[...] = jnp.zeros_like(acc_scr)
-
-    length = len_ref[b]
-    base = (sp * n_blocks + blk) * bk
-
-    @pl.when(base < length)
-    def _compute():
-        q = q_ref[...].reshape(g, d)                      # [G, D]
-        k = k_ref[...].reshape(-1, d)                     # [bk, D]
-        prec = (jax.lax.Precision.HIGHEST if q.dtype == jnp.float32
-                else jax.lax.Precision.DEFAULT)
-        if quantized:
-            # int8 payload: dot in bf16 (int8 values exact in bf16), then
-            # scale the [G, bk] score row-wise
-            s = jax.lax.dot_general(
-                q.astype(jnp.bfloat16), k.astype(jnp.bfloat16),
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )
-            s = s * (k_scale_ref[...].reshape(1, -1) * scale)  # [1, bk]
-        else:
-            s = jax.lax.dot_general(
-                q, k, dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32, precision=prec,
-            ) * scale                                      # [G, bk]
-        kpos = base + jax.lax.broadcasted_iota(jnp.int32, (g, bk), 1)
-        s = jnp.where(kpos < length, s, DEFAULT_MASK_VALUE)
-
-        m_prev, l_prev = m_scr[...], l_scr[...]            # [G, 128]
-        m_curr = jnp.max(s, axis=1, keepdims=True)
-        m_next = jnp.maximum(m_prev, m_curr)
-        alpha = jnp.exp(m_prev - m_next)
-        p = jnp.exp(s - m_next[:, :1])
-        l_next = l_prev * alpha + jnp.sum(p, axis=1, keepdims=True)
-        m_scr[...] = m_next
-        l_scr[...] = l_next
-        acc_scr[...] *= alpha[:, :1]
-        v = v_ref[...].reshape(-1, d)                      # [bk, D]
-        if quantized:
-            pv = (p * v_scale_ref[...].reshape(1, -1)).astype(jnp.bfloat16)
-            acc_scr[...] += jax.lax.dot(
-                pv, v.astype(jnp.bfloat16),
-                preferred_element_type=jnp.float32,
-            )
-        else:
-            acc_scr[...] += jax.lax.dot(
-                p.astype(v.dtype), v, preferred_element_type=jnp.float32,
-                precision=prec,
-            )
-
-    @pl.when(blk == n_blocks - 1)
-    def _emit():
-        if finalize:
-            # single split: normalize in-kernel (o/s), skipping the
-            # XLA-level merge + finalize chain entirely
-            l = l_scr[...][:, :1]
-            lsafe = jnp.where(l == 0.0, 1.0, l)
-            o_ref[0, 0, 0] = acc_scr[...] / lsafe
-        else:
-            o_ref[0, 0, 0] = acc_scr[...]
-        m_ref[0, 0, 0] = m_scr[...]
-        s_ref[0, 0, 0] = l_scr[...]
+_MIN_ROWS = 16       # smallest tensor-core tile M that pl.dot accepts
+_TARGET_BLOCKS = 256  # about two blocks per SM on a 132-SM card
 
 
-def _decode_kernel_ht(len_ref, q_ref, k_ref, v_ref,
-                      o_ref, m_ref, s_ref,
-                      m_scr, l_scr, acc_scr, *,
-                      scale: float, bk: int, n_blocks: int, ht: int,
-                      finalize: bool = False,
-                      k_scale_ref=None, v_scale_ref=None):
-    """Head-tiled variant for G == 1 (MHA, no GQA grouping): each grid step
-    processes ``ht`` KV heads at once.
+def decode_plan(batch: int, n_kv_heads: int, seq: int,
+                kv_splits: int | None = None,
+                block_k: int | None = None) -> tuple[int, int]:
+    """(block_k, splits): the largest power-of-two block (<= 64) dividing
+    the cache length, and enough splits for about 2 blocks per SM."""
+    bk = block_k or next(c for c in (64, 32, 16) if seq % c == 0)
+    assert seq % bk == 0 and bk >= 16, (seq, bk)
+    if kv_splits is None:
+        kv_splits = 1
+        while (batch * n_kv_heads * kv_splits < _TARGET_BLOCKS
+               and kv_splits * 2 <= seq // bk):
+            kv_splits *= 2
+    return bk, kv_splits
 
-    With G == 1 the per-step work of the base kernel is a single
-    [1, D] x [D, bk] matvec — so small that the ~0.5-0.8 us fixed cost per
-    grid step dominates (a 7B MHA model runs B*Hkv*blocks = 128 steps per
-    layer). Tiling ``ht`` heads per step cuts the step count by ht and
-    turns QK^T / P·V into vectorized VPU multiply-reduces over the head
-    tile ([ht, bk, D] elementwise + lane/sublane reduction) — per-head
-    1-row MXU dots would waste 127/128 of the MXU anyway (the same reason
-    the reference's query-replication trick is wasteful,
-    /root/reference/src/flash_row_float.h:21-38). Same online-softmax
-    state and LSE semantics as ``_decode_kernel``, rows = heads.
-    """
-    b, sp, blk = pl.program_id(0), pl.program_id(2), pl.program_id(3)
-    d = q_ref.shape[-1]
-    quantized = k_scale_ref is not None
 
-    @pl.when(blk == 0)
-    def _init():
-        m_scr[...] = jnp.full_like(m_scr, -jnp.inf)
-        l_scr[...] = jnp.zeros_like(l_scr)
-        acc_scr[...] = jnp.zeros_like(acc_scr)
+def _group_rows(g: int) -> int:
+    return max(_MIN_ROWS, 1 << (g - 1).bit_length())
 
-    length = len_ref[b]
-    base = (sp * n_blocks + blk) * bk
 
-    @pl.when(base < length)
-    def _compute():
-        q = q_ref[...].reshape(ht, 1, d).astype(jnp.float32)
-        k = k_ref[...].reshape(ht, bk, d).astype(jnp.float32)
-        s = jnp.sum(q * k, axis=-1)                        # [ht, bk]
-        if quantized:
-            s = s * (k_scale_ref[...].reshape(ht, bk) * scale)
-        else:
-            s = s * scale
-        kpos = base + jax.lax.broadcasted_iota(jnp.int32, (ht, bk), 1)
-        s = jnp.where(kpos < length, s, DEFAULT_MASK_VALUE)
+def _online_softmax_step(q, k, v, kscale, vscale, pos0, length, scale,
+                         carry):
+    """One KV block of the online softmax. q [Gp, D]; k, v [bk, D];
+    kscale / vscale [bk] or None. Returns the updated (o, m, l)."""
+    o, m, l = carry
+    bk = k.shape[0]
+    if kscale is not None:
+        k = k.astype(jnp.bfloat16)
+        v = v.astype(jnp.bfloat16)
+        s = pl.dot(q.astype(jnp.bfloat16), k, trans_b=True)
+        s = s * (kscale.astype(jnp.float32) * scale)[None, :]
+    else:
+        s = pl.dot(q, k.astype(q.dtype), trans_b=True) * scale
+    kpos = pos0 + jnp.arange(bk, dtype=jnp.int32)
+    s = jnp.where(kpos[None, :] < length, s, DEFAULT_MASK_VALUE)
+    m_new = jnp.maximum(m, jnp.max(s, axis=1))
+    alpha = jnp.exp(m - m_new)
+    p = jnp.exp(s - m_new[:, None])
+    l = l * alpha + jnp.sum(p, axis=1)
+    if vscale is not None:
+        p = p * vscale.astype(jnp.float32)[None, :]
+    o = o * alpha[:, None] + pl.dot(p.astype(v.dtype), v)
+    return o, m_new, l
 
-        m_prev, l_prev = m_scr[...], l_scr[...]            # [ht, 128]
-        m_curr = jnp.max(s, axis=1, keepdims=True)
-        m_next = jnp.maximum(m_prev, m_curr)
-        alpha = jnp.exp(m_prev - m_next)
-        p = jnp.exp(s - m_next[:, :1])                     # [ht, bk]
-        l_next = l_prev * alpha + jnp.sum(p, axis=1, keepdims=True)
-        m_scr[...] = m_next
-        l_scr[...] = l_next
-        acc_scr[...] *= alpha[:, :1]
-        v = v_ref[...].reshape(ht, bk, d).astype(jnp.float32)
-        if quantized:
-            p = p * v_scale_ref[...].reshape(ht, bk)
-        acc_scr[...] += jnp.sum(p[:, :, None] * v, axis=1)  # [ht, D]
 
-    @pl.when(blk == n_blocks - 1)
-    def _emit():
-        if finalize:
-            l = l_scr[...][:, :1]
-            lsafe = jnp.where(l == 0.0, 1.0, l)
-            o_ref[...] = (acc_scr[...] / lsafe).reshape(o_ref.shape)
-        else:
-            o_ref[...] = acc_scr[...].reshape(o_ref.shape)
-        m_ref[...] = m_scr[...].reshape(m_ref.shape)
-        s_ref[...] = l_scr[...].reshape(s_ref.shape)
+def _decode_kernel(len_ref, layer_ref, q_ref, k_ref, v_ref, *rest,
+                   scale: float, bk: int, splits: int, quantized: bool,
+                   layered: bool):
+    if quantized:
+        ks_ref, vs_ref, o_ref, m_ref, l_ref = rest
+    else:
+        o_ref, m_ref, l_ref = rest
+    sp = pl.program_id(2)
+    length = len_ref[0]
+    n_blk = pl.cdiv(length, bk)
+    per = pl.cdiv(n_blk, splits)
+    start = sp * per
+    end = jnp.minimum(start + per, n_blk)
+    lyr = (layer_ref[0],) if layered else ()
+    q = q_ref[...]
+    gp, d = q.shape
+
+    def body(i, carry):
+        pos0 = i * bk
+        kv_idx = lyr + (pl.ds(pos0, bk), slice(None))
+        sc_idx = lyr + (pl.ds(pos0, bk),)
+        return _online_softmax_step(
+            q, k_ref[kv_idx], v_ref[kv_idx],
+            ks_ref[sc_idx] if quantized else None,
+            vs_ref[sc_idx] if quantized else None,
+            pos0, length, scale, carry)
+
+    o, m, l = jax.lax.fori_loop(
+        start, end, body,
+        (jnp.zeros((gp, d), jnp.float32),
+         jnp.full((gp,), -jnp.inf, jnp.float32),
+         jnp.zeros((gp,), jnp.float32)))
+    o_ref[...] = o
+    m_ref[...] = m
+    l_ref[...] = l
+
+
+def _decode_partial_kernel(q, k, v, lengths, k_scale, v_scale, scale,
+                           layer, kv_splits, block_k) -> AttnPartial:
+    """Kernel path -> merged partial (o [B, Hkv, G, D], m/s [..., 1])."""
+    B, Hq, D = q.shape
+    layered = k.ndim == 5
+    L, _, Hkv, S, _ = k.shape if layered else (1, *k.shape)
+    G = Hq // Hkv
+    gp = _group_rows(G)
+    bk, splits = decode_plan(B, Hkv, S, kv_splits, block_k)
+    quantized = k_scale is not None
+
+    qg = jnp.pad(q.reshape(B, Hkv, G, D), ((0, 0), (0, 0), (0, gp - G),
+                                            (0, 0)))
+    lens = lengths.astype(jnp.int32).reshape(B, 1)
+    lyr = jnp.asarray(layer if layered else 0, jnp.int32).reshape(1)
+    lead = (L,) if layered else ()
+    lead0 = (0,) if layered else ()
+    kv_spec = pl.BlockSpec((*lead, None, None, S, D),
+                           lambda b, h, s: (*lead0, b, h, 0, 0))
+    sc_spec = pl.BlockSpec((*lead, None, None, S),
+                           lambda b, h, s: (*lead0, b, h, 0))
+    in_specs = [
+        pl.BlockSpec((None, 1), lambda b, h, s: (b, 0)),
+        pl.BlockSpec((1,), lambda b, h, s: (0,)),
+        pl.BlockSpec((None, None, gp, D), lambda b, h, s: (b, h, 0, 0)),
+        kv_spec, kv_spec,
+    ]
+    args = [lens, lyr, qg, k, v]
+    if quantized:
+        in_specs += [sc_spec, sc_spec]
+        args += [k_scale, v_scale]
+    o, m, l = pl.pallas_call(
+        functools.partial(_decode_kernel, scale=scale, bk=bk, splits=splits,
+                          quantized=quantized, layered=layered),
+        grid=(B, Hkv, splits),
+        in_specs=in_specs,
+        out_specs=[
+            pl.BlockSpec((None, None, None, gp, D),
+                         lambda b, h, s: (b, h, s, 0, 0)),
+            pl.BlockSpec((None, None, None, gp),
+                         lambda b, h, s: (b, h, s, 0)),
+            pl.BlockSpec((None, None, None, gp),
+                         lambda b, h, s: (b, h, s, 0)),
+        ],
+        out_shape=[
+            jax.ShapeDtypeStruct((B, Hkv, splits, gp, D), jnp.float32),
+            jax.ShapeDtypeStruct((B, Hkv, splits, gp), jnp.float32),
+            jax.ShapeDtypeStruct((B, Hkv, splits, gp), jnp.float32),
+        ],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=2),
+        interpret=platform.interpret(),
+        name="flash_decode",
+    )(*args)
+    parts = AttnPartial(o=o[:, :, :, :G], m=m[:, :, :, :G, None],
+                        s=l[:, :, :, :G, None])
+    return lse_combine_stacked(parts, axis=2)
+
+
+def _decode_partial_xla(q, k, v, lengths, k_scale, v_scale, scale,
+                        layer) -> AttnPartial:
+    """Plain path: full read of the (layer of the) cache, masked softmax."""
+    if k.ndim == 5:
+        pick = lambda a: jax.lax.dynamic_index_in_dim(a, layer, 0, False)
+        k, v = pick(k), pick(v)
+        if k_scale is not None:
+            k_scale, v_scale = pick(k_scale), pick(v_scale)
+    B, Hq, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    prec = (jax.lax.Precision.HIGHEST if q.dtype == jnp.float32
+            else jax.lax.Precision.DEFAULT)
+    qg = q.reshape(B, Hkv, G, D).astype(jnp.float32)
+    kf, vf = k.astype(jnp.float32), v.astype(jnp.float32)
+    if k_scale is not None:
+        kf = kf * k_scale[..., None]
+        vf = vf * v_scale[..., None]
+    s = jnp.einsum("bhgd,bhsd->bhgs", qg, kf, precision=prec) * scale
+    valid = jnp.arange(S)[None, :] < lengths[:, None]         # [B, S]
+    s = jnp.where(valid[:, None, None], s, -jnp.inf)
+    m = jnp.max(s, axis=-1, keepdims=True)
+    p = jnp.where(valid[:, None, None],
+                  jnp.exp(s - jnp.where(jnp.isfinite(m), m, 0.0)), 0.0)
+    o = jnp.einsum("bhgs,bhsd->bhgd", p, vf, precision=prec)
+    return AttnPartial(o=o, m=m, s=jnp.sum(p, axis=-1, keepdims=True))
+
+
+def choose_impl(impl: str | None = None) -> str:
+    return platform.resolve_impl(impl, GPU_IMPL, ("kernel", "xla"))
 
 
 @functools.partial(
     jax.jit,
     static_argnames=("scale", "kv_splits", "block_k", "return_partial",
-                     "interpret"),
+                     "impl"),
 )
 def flash_decode(
     q: jax.Array,
@@ -225,171 +230,44 @@ def flash_decode(
     k_scale: jax.Array | None = None,
     v_scale: jax.Array | None = None,
     scale: float | None = None,
-    kv_splits: int = 1,
-    block_k: int = 256,
+    kv_splits: int | None = None,
+    block_k: int | None = None,
     return_partial: bool = False,
     layer: jax.Array | int | None = None,
-    interpret: bool | None = None,
-) -> jax.Array:
+    impl: str | None = None,
+):
     """Single-token attention against a KV cache, split-KV parallel.
 
     q: [B, Hq, D] (the current token's query per sequence)
     k, v: [B, Hkv, S, D] KV cache (S = allocated cache length), OR the FULL
-        stacked cache [L, B, Hkv, S, D] together with ``layer`` — the layer
-        is then selected inside the kernel's BlockSpec index map (scalar
-        prefetch), so no per-layer slice of the cache is ever materialized
-        (an XLA slice feeding a custom call copies the whole layer: ~16 MB
-        of dead HBM traffic per decode layer at 7B shapes).
-    lengths: [B] int32 valid prefix per sequence (defaults to S)
-    layer: scalar int (static or traced) selecting the cache layer when
-        k/v are 5-D.
-    Returns O [B, Hq, D] in q's dtype.
+        stacked cache [L, B, Hkv, S, D] together with ``layer``.
+    lengths: [B] int32 valid prefix per sequence (>= 1; defaults to S)
+    k_scale, v_scale: per-token f32 scales ([(L,) B, Hkv, S]) for int8 /
+        fp8 caches.
+    Returns O [B, Hq, D] in q's dtype, or with ``return_partial`` the
+    un-normalized AttnPartial (o [B, Hq, D], m / s [B, Hq, 1]) for
+    cross-device merging. ``impl``: "kernel", "xla" or None.
     """
     B, Hq, D = q.shape
     layered = k.ndim == 5
     assert layered == (layer is not None), \
         "pass `layer` iff k/v carry a leading layer dimension"
-    _, Hkv, S, _ = k.shape[1:] if layered else k.shape
-    assert Hq % Hkv == 0
-    G = Hq // Hkv
+    assert (k_scale is None) == (v_scale is None), \
+        "k_scale and v_scale must be given together"
+    S = k.shape[-2]
     if scale is None:
         scale = float(1.0 / D ** 0.5)
     if lengths is None:
         lengths = jnp.full((B,), S, jnp.int32)
-
-    bk = min(block_k, S)
-    assert S % bk == 0, f"cache length {S} must be a multiple of block_k {bk}"
-    total_blocks = S // bk
-    n_splits = min(kv_splits, total_blocks)
-    # distribute blocks over splits (last split may see only masked blocks)
-    n_blocks = -(-total_blocks // n_splits)
-    n_splits = -(-total_blocks // n_blocks)
-
-    qg = q.reshape(B, Hkv, G, D)
-
-    # Head tile: with G == 1 (MHA) the per-step work is a single-row
-    # matvec, so grid-step fixed cost dominates — process ``hb`` heads per
-    # step via the vectorized _decode_kernel_ht (see its docstring).
-    hb = 1
-    if G == 1:
-        for cand in (8, 4, 2):
-            if Hkv % cand == 0:
-                hb = cand
-                break
-
-    grid = (B, Hkv // hb, n_splits, n_blocks)
-
-    # Clamp the KV block index to the last block that intersects `length`
-    # (lens is the scalar-prefetch ref, trailing index-map argument): the
-    # tail of the grid revisits that resident tile instead of DMAing dead
-    # cache slots — HBM traffic scales with the *valid* context, and the
-    # out-of-bounds tail-split tiles are clamped by the same expression.
-    # When ``layered``, a second prefetch scalar carries the layer index
-    # and the KV maps lead with it — the full stacked cache is the operand
-    # and only the selected layer's tiles are ever DMA'd.
-    def kv_index(b, h, sp, blk, lens, *lyr):
-        last_valid = jnp.maximum((lens[b] + bk - 1) // bk - 1, 0)
-        blk_c = jnp.minimum(jnp.minimum(sp * n_blocks + blk, last_valid),
-                            total_blocks - 1)
-        if layered:
-            return (lyr[0][0], b, h, blk_c, 0)
-        return (b, h, blk_c, 0)
-
-    quantized = k_scale is not None
-    assert (v_scale is not None) == quantized, \
-        "k_scale and v_scale must be given together"
-    # single split + no cross-chip merge needed: the kernel normalizes
-    # in-place and the XLA merge/finalize chain is skipped (measurable
-    # per-layer glue at decode batch 1)
-    in_kernel_finalize = (n_splits == 1) and not return_partial
-
-    kv_block = (1, 1, hb, bk, D) if layered else (1, hb, bk, D)
-    in_specs = [
-        pl.BlockSpec((1, hb, G, D),
-                     lambda b, h, sp, blk, *refs: (b, h, 0, 0)),
-        pl.BlockSpec(kv_block, kv_index),
-        pl.BlockSpec(kv_block, kv_index),
-    ]
-    args = [qg, k, v]
-    if quantized:
-        scale_index = lambda *a: kv_index(*a)[:-1]
-        sc_block = (1, 1, hb, bk) if layered else (1, hb, bk)
-        in_specs += [pl.BlockSpec(sc_block, scale_index)] * 2
-        args += [k_scale, v_scale]
-
-    prefetch = [lengths.astype(jnp.int32)]
-    if layered:
-        prefetch.append(jnp.atleast_1d(jnp.asarray(layer, jnp.int32)))
-
-    def kernel_entry(len_ref, *rest):
-        if layered:
-            rest = rest[1:]                  # drop the layer prefetch ref
-        q_ref, k_ref, v_ref, rest = rest[0], rest[1], rest[2], rest[3:]
-        if quantized:
-            ks_ref, vs_ref = rest[0], rest[1]
-            rest = rest[2:]
-        else:
-            ks_ref = vs_ref = None
-        if hb > 1:
-            _decode_kernel_ht(len_ref, q_ref, k_ref, v_ref, *rest,
-                              scale=scale, bk=bk, n_blocks=n_blocks, ht=hb,
-                              finalize=in_kernel_finalize,
-                              k_scale_ref=ks_ref, v_scale_ref=vs_ref)
-        else:
-            _decode_kernel(len_ref, q_ref, k_ref, v_ref, *rest,
-                           scale=scale, bk=bk, n_blocks=n_blocks,
-                           finalize=in_kernel_finalize,
-                           k_scale_ref=ks_ref, v_scale_ref=vs_ref)
-
-    part_index = lambda b, h, sp, blk, *refs: (b, h, sp, 0, 0)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1 + layered,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=[
-            pl.BlockSpec((1, hb, 1, G, D), part_index),
-            pl.BlockSpec((1, hb, 1, G, 128), part_index),
-            pl.BlockSpec((1, hb, 1, G, 128), part_index),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((hb * G, 128), jnp.float32),
-            pltpu.VMEM((hb * G, 128), jnp.float32),
-            pltpu.VMEM((hb * G, D), jnp.float32),
-        ],
-    )
-
-    o_part, m_part, s_part = pl.pallas_call(
-        kernel_entry,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((B, Hkv, n_splits, G, D), jnp.float32),
-            jax.ShapeDtypeStruct((B, Hkv, n_splits, G, 128), jnp.float32),
-            jax.ShapeDtypeStruct((B, Hkv, n_splits, G, 128), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel",
-                                 "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=4 * B * Hq * S * D,
-            bytes_accessed=2 * B * Hkv * S * D * k.dtype.itemsize,
-            transcendentals=B * Hq * S,
-        ),
-        interpret=interpret_default(interpret),
-    )(*prefetch, *args)
-
-    if in_kernel_finalize:
-        return o_part.reshape(B, Hq, D).astype(q.dtype)
-
-    # Phase 2 — fa_reduce analog: fold split partials with the LSE combine.
-    parts = AttnPartial(o=o_part, m=m_part[..., :1], s=s_part[..., :1])
-    merged = lse_combine_stacked(parts, axis=2)
+    if choose_impl(impl) == "kernel":
+        part = _decode_partial_kernel(q, k, v, lengths, k_scale, v_scale,
+                                      scale, layer, kv_splits, block_k)
+    else:
+        part = _decode_partial_xla(q, k, v, lengths, k_scale, v_scale,
+                                   scale, layer)
+    part = AttnPartial(o=part.o.reshape(B, Hq, D),
+                       m=part.m.reshape(B, Hq, 1),
+                       s=part.s.reshape(B, Hq, 1))
     if return_partial:
-        # un-finalized (o, m, s) for cross-chip context-parallel merging
-        return AttnPartial(
-            o=merged.o.reshape(B, Hq, D),
-            m=merged.m.reshape(B, Hq, 1),
-            s=merged.s.reshape(B, Hq, 1),
-        )
-    out = lse_finalize(merged, out_dtype=q.dtype)          # [B, Hkv, G, D]
-    return out.reshape(B, Hq, D)
+        return part
+    return lse_finalize(part, out_dtype=q.dtype)

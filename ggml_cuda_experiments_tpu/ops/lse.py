@@ -90,7 +90,7 @@ def lse_combine_stacked(parts: AttnPartial, axis: int = 0) -> AttnPartial:
 def lse_combine_axis(p: AttnPartial, axis_name: str) -> AttnPartial:
     """Combine partials held by the devices of a mesh axis (context
     parallelism): the cross-chip form of the same merge, via pmax + psum
-    collectives (one hop over ICI; boom guide §15 approach 2)."""
+    collectives (one all-reduce hop; boom guide §15 approach 2)."""
     m = jax.lax.pmax(p.m, axis_name)
     alpha = jnp.where(p.m == -jnp.inf, 0.0, jnp.exp(p.m - m))
     s = jax.lax.psum(p.s * alpha, axis_name)

@@ -1,33 +1,19 @@
-"""Paged-KV flash decode: non-contiguous KV pages gathered by async DMA.
+"""Paged-KV flash decode: single-token attention over a shared page pool.
 
 The serving-time form of the split-KV decode (ops/flash_decode.py): the KV
-cache lives in a shared page pool in HBM, each sequence owns a list of page
-indices, and the kernel streams its pages through a double-buffered VMEM
-window — next block prefetched while the current one computes (the VMEM
-staging + async-copy discipline is the analog of the reference's
-cooperative_groups::memcpy_async shared-memory staging,
-/root/reference/src/flash_row_float.h:241-252 and
-/root/reference/src/flash-matrix.cu:18-65, done with Pallas DMA).
+cache lives in one page pool, each sequence owns a list of page indices,
+and each kernel block loads its own page indices and then its pages, in
+the same online-softmax loop as the contiguous decode. (On the reference
+this staging is ``memcpy_async`` into shared memory,
+/root/reference/src/flash_row_float.h:241-252; through Triton, the loop's
+pipeline stages keep the next page's loads in flight.)
 
-Layout: pages are **page-major across heads** —
-``[(L,) n_pages, Hkv, page_size, D]`` — so ONE page DMA moves every KV
-head's tokens as one contiguous [Hkv, ps, D] block. Round 3 measured the
-previous head-major layout ([Hkv, n_pages, ps, D], one DMA per (head,
-page)) at ~21 us of fixed cost per (sequence, head) grid step on a v5e —
-4096 DMA descriptors per 7B layer at batch 8 — which made the paged
-serving path 12x slower than the contiguous cache. Page-major cuts the
-descriptor count by Hkv (one [Hkv, ps, D] copy per page) and the grid to
-(batch, kv_blocks); every head is computed inside one step. This is also
-the layout in which a page is the unit of both allocation AND transfer
-(the reference keeps V transposed-contiguous for the same reason its hot
-loop wants it, /root/reference/src/flash_row_float.h:176-177).
-
-Supports bf16 pages and int8/fp8 pages with per-token scales (scales
-applied to score/probability rows, not the D-wide tiles — see
-flash_decode). NOTE: quantized pools need ``page_size`` to be a multiple
-of 128 on real TPUs — the per-page scale block is a [Hkv, page_size]
-tile and Mosaic requires its lane dim 128-aligned; bf16 pools take any
-page_size.
+Layout: the pool is page-major across heads, ``[(L,) n_pages, Hkv,
+page_size, D]`` — a page is the unit of allocation, and the kernel reads
+it as stored (no transpose to JAX's head-major example layout per call).
+Grid (B, Hkv, splits); a block owns one KV head of one sequence and an
+equal share of its valid pages. int8 / fp8 pages carry per-token f32
+scales ``[(L,) n_pages, Hkv, page_size]``.
 """
 
 from __future__ import annotations
@@ -37,170 +23,140 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from ggml_cuda_experiments_tpu.utils.platform import interpret_default
+from ggml_cuda_experiments_tpu.ops.flash_decode import (
+    _decode_partial_xla, _group_rows, _online_softmax_step, _TARGET_BLOCKS)
+from ggml_cuda_experiments_tpu.ops.lse import (
+    AttnPartial, lse_combine_stacked, lse_finalize)
+from ggml_cuda_experiments_tpu.utils import platform
 
-DEFAULT_MASK_VALUE = -0.7 * float(jnp.finfo(jnp.float32).max)
+GPU_IMPL = "kernel"
 
 
-def _paged_kernel(
-    # scalar prefetch
-    len_ref, pages_ref, *rest,
-    scale: float, page_size: int, ppcb: int, n_blocks: int,
-    batch: int, G: int, quantized: bool, layered: bool,
-):
-    if layered:
-        # the pools carry a leading layer dim; DMAs index the prefetched
-        # layer scalar, so the caller never materializes a layer slice of
-        # the (large) page pool to feed the kernel
-        layer_ref, rest = rest[0], rest[1:]
-        lyr = (layer_ref[0],)
-    else:
-        lyr = ()
-    q_ref, k_pages, v_pages, rest = rest[0], rest[1], rest[2], rest[3:]
+def paged_splits(batch: int, n_kv_heads: int, pages_per_seq: int) -> int:
+    splits = 1
+    while (batch * n_kv_heads * splits < _TARGET_BLOCKS
+           and splits * 2 <= pages_per_seq):
+        splits *= 2
+    return splits
+
+
+def _paged_kernel(len_ref, layer_ref, pt_ref, q_ref, k_ref, v_ref, *rest,
+                  scale: float, ps: int, splits: int, quantized: bool,
+                  layered: bool):
     if quantized:
-        (ks_pages, vs_pages, o_ref,
-         k_buf, v_buf, ks_buf, vs_buf, sems, state,
-         m_scr, l_scr, acc_scr) = rest
+        ks_ref, vs_ref, o_ref, m_ref, l_ref = rest
     else:
-        (o_ref, k_buf, v_buf, sems, state,
-         m_scr, l_scr, acc_scr) = rest
-        ks_pages = vs_pages = ks_buf = vs_buf = None
+        o_ref, m_ref, l_ref = rest
+    sp = pl.program_id(2)
+    length = len_ref[0]
+    n_pg = pl.cdiv(length, ps)
+    per = pl.cdiv(n_pg, splits)
+    start = sp * per
+    end = jnp.minimum(start + per, n_pg)
+    lyr = (layer_ref[0],) if layered else ()
+    q = q_ref[...]
+    gp, d = q.shape
 
-    b, i = pl.program_id(0), pl.program_id(1)
-    hkv = q_ref.shape[1]
-    bk = ppcb * page_size
-    n_pages_total = k_pages.shape[-4]
+    def body(i, carry):
+        page = pt_ref[i]
+        kv_idx = lyr + (page, slice(None), slice(None))
+        sc_idx = lyr + (page, slice(None))
+        return _online_softmax_step(
+            q, k_ref[kv_idx], v_ref[kv_idx],
+            ks_ref[sc_idx] if quantized else None,
+            vs_ref[sc_idx] if quantized else None,
+            i * ps, length, scale, carry)
 
-    def nblocks_of(bb):
-        return pl.cdiv(len_ref[bb], bk)
-
-    def block_dmas(bb, ii, slot):
-        """Descriptors for the per-page DMAs of block ii of sequence bb —
-        ppcb [Hkv, ps, D] copies each for K and V (+ [Hkv, ps] scales).
-
-        Rebuilt identically at start and wait time (the wait must reference
-        the same src/dst — the interpreter executes the copy at wait)."""
-        dmas = []
-        for p in range(ppcb):
-            page = jnp.minimum(pages_ref[bb, ii * ppcb + p],
-                               n_pages_total - 1)
-            idx = lyr + (page,)
-            dmas.append(pltpu.make_async_copy(
-                k_pages.at[idx], k_buf.at[slot, p], sems.at[0, slot, p]))
-            dmas.append(pltpu.make_async_copy(
-                v_pages.at[idx], v_buf.at[slot, p], sems.at[1, slot, p]))
-            if quantized:
-                dmas.append(pltpu.make_async_copy(
-                    ks_pages.at[idx], ks_buf.at[slot, p],
-                    sems.at[2, slot, p]))
-                dmas.append(pltpu.make_async_copy(
-                    vs_pages.at[idx], vs_buf.at[slot, p],
-                    sems.at[3, slot, p]))
-        return dmas
-
-    def start_block(bb, ii, slot):
-        for dma in block_dmas(bb, ii, slot):
-            dma.start()
-
-    def wait_block(bb, ii, slot):
-        for dma in block_dmas(bb, ii, slot):
-            dma.wait()
-
-    def next_block(bb, ii):
-        """Lexicographic successor skipping each sequence's empty tail."""
-        ii = ii + 1
-        roll_b = ii >= nblocks_of(bb)
-        bb = jnp.where(roll_b, bb + 1, bb)
-        ii = jnp.where(roll_b, 0, ii)
-        return bb, ii
-
-    length = len_ref[b]
-    base = i * bk
-
-    # SMEM scratch is not zero-initialized: reset the DMA state machine on
-    # the global first step (always active since lengths >= 1)
-    @pl.when((b == 0) & (i == 0))
-    def _reset():
-        state[1] = 0
-
-    @pl.when(base < length)
-    def _active():
-        # state[0]: buffer slot of the *current* block
-        # state[1]: 0 until the very first DMA has been issued
-        @pl.when(state[1] == 0)
-        def _first():
-            start_block(b, i, 0)
-            state[0] = 0
-            state[1] = 1
-
-        slot = state[0]
-
-        # prefetch the next real block into the other slot
-        nb, ni = next_block(b, i)
-
-        @pl.when(nb < batch)
-        def _prefetch():
-            start_block(nb, ni, 1 - slot)
-        state[0] = 1 - slot
-
-        @pl.when(i == 0)
-        def _init():
-            m_scr[...] = jnp.full_like(m_scr, -jnp.inf)
-            l_scr[...] = jnp.zeros_like(l_scr)
-            acc_scr[...] = jnp.zeros_like(acc_scr)
-
-        wait_block(b, i, slot)
-
-        # per-GQA-group loop (static, G = Hq/Hkv): every op below is a
-        # [Hkv, x]-shaped VPU broadcast/reduce — all heads advance in one
-        # grid step (the whole point of the page-major layout)
-        for g in range(G):
-            qg = q_ref[0, :, g, :].astype(jnp.float32)       # [Hkv, D]
-            parts = []
-            for p in range(ppcb):
-                kp = k_buf[slot, p].astype(jnp.float32)      # [Hkv, ps, D]
-                sp = jnp.sum(qg[:, None, :] * kp, axis=-1)   # [Hkv, ps]
-                if quantized:
-                    sp = sp * (ks_buf[slot, p] * scale)
-                else:
-                    sp = sp * scale
-                parts.append(sp)
-            s = parts[0] if ppcb == 1 else jnp.concatenate(parts, axis=1)
-            kpos = base + jax.lax.broadcasted_iota(jnp.int32, (hkv, bk), 1)
-            s = jnp.where(kpos < length, s, DEFAULT_MASK_VALUE)
-
-            m_prev, l_prev = m_scr[g], l_scr[g]
-            m_curr = jnp.max(s, axis=1, keepdims=True)
-            m_next = jnp.maximum(m_prev, m_curr)
-            alpha = jnp.exp(m_prev - m_next)
-            pmat = jnp.exp(s - m_next[:, :1])
-            l_next = l_prev * alpha + jnp.sum(pmat, axis=1, keepdims=True)
-            m_scr[g] = m_next
-            l_scr[g] = l_next
-            acc = acc_scr[g] * alpha[:, :1]
-            for p in range(ppcb):
-                vp = v_buf[slot, p].astype(jnp.float32)      # [Hkv, ps, D]
-                pp = pmat[:, p * page_size:(p + 1) * page_size]
-                if quantized:
-                    pp = pp * vs_buf[slot, p]
-                acc = acc + jnp.sum(pp[:, :, None] * vp, axis=1)
-            acc_scr[g] = acc
-
-        @pl.when(i == nblocks_of(b) - 1)
-        def _emit():
-            for g in range(G):
-                l = l_scr[g][:, :1]
-                l_safe = jnp.where(l == 0.0, 1.0, l)
-                o_ref[0, :, g, :] = (acc_scr[g] / l_safe
-                                     ).astype(o_ref.dtype)
+    o, m, l = jax.lax.fori_loop(
+        start, end, body,
+        (jnp.zeros((gp, d), jnp.float32),
+         jnp.full((gp,), -jnp.inf, jnp.float32),
+         jnp.zeros((gp,), jnp.float32)))
+    o_ref[...] = o
+    m_ref[...] = m
+    l_ref[...] = l
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("scale", "pages_per_compute_block", "interpret"),
-)
+def _paged_partial_kernel(q, k_pages, v_pages, lengths, page_indices,
+                          k_scale_pages, v_scale_pages, scale, layer,
+                          kv_splits):
+    B, Hq, D = q.shape
+    layered = k_pages.ndim == 5
+    L, P, Hkv, ps, _ = (k_pages.shape if layered else (1, *k_pages.shape))
+    G = Hq // Hkv
+    gp = _group_rows(G)
+    pps = page_indices.shape[1]
+    splits = kv_splits or paged_splits(B, Hkv, pps)
+    quantized = k_scale_pages is not None
+    assert ps >= 16 and ps & (ps - 1) == 0, f"page size {ps}: power of 2 >= 16"
+
+    qg = jnp.pad(q.reshape(B, Hkv, G, D), ((0, 0), (0, 0), (0, gp - G),
+                                            (0, 0)))
+    lens = lengths.astype(jnp.int32).reshape(B, 1)
+    lyr = jnp.asarray(layer if layered else 0, jnp.int32).reshape(1)
+    lead = (L,) if layered else ()
+    lead0 = (0,) if layered else ()
+    kv_spec = pl.BlockSpec((*lead, P, None, ps, D),
+                           lambda b, h, s: (*lead0, 0, h, 0, 0))
+    sc_spec = pl.BlockSpec((*lead, P, None, ps),
+                           lambda b, h, s: (*lead0, 0, h, 0))
+    in_specs = [
+        pl.BlockSpec((None, 1), lambda b, h, s: (b, 0)),
+        pl.BlockSpec((1,), lambda b, h, s: (0,)),
+        pl.BlockSpec((None, pps), lambda b, h, s: (b, 0)),
+        pl.BlockSpec((None, None, gp, D), lambda b, h, s: (b, h, 0, 0)),
+        kv_spec, kv_spec,
+    ]
+    args = [lens, lyr, page_indices.astype(jnp.int32), qg, k_pages, v_pages]
+    if quantized:
+        in_specs += [sc_spec, sc_spec]
+        args += [k_scale_pages, v_scale_pages]
+    o, m, l = pl.pallas_call(
+        functools.partial(_paged_kernel, scale=scale, ps=ps, splits=splits,
+                          quantized=quantized, layered=layered),
+        grid=(B, Hkv, splits),
+        in_specs=in_specs,
+        out_specs=[
+            pl.BlockSpec((None, None, None, gp, D),
+                         lambda b, h, s: (b, h, s, 0, 0)),
+            pl.BlockSpec((None, None, None, gp),
+                         lambda b, h, s: (b, h, s, 0)),
+            pl.BlockSpec((None, None, None, gp),
+                         lambda b, h, s: (b, h, s, 0)),
+        ],
+        out_shape=[
+            jax.ShapeDtypeStruct((B, Hkv, splits, gp, D), jnp.float32),
+            jax.ShapeDtypeStruct((B, Hkv, splits, gp), jnp.float32),
+            jax.ShapeDtypeStruct((B, Hkv, splits, gp), jnp.float32),
+        ],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=2),
+        interpret=platform.interpret(),
+        name="paged_decode",
+    )(*args)
+    parts = AttnPartial(o=o[:, :, :, :G], m=m[:, :, :, :G, None],
+                        s=l[:, :, :, :G, None])
+    return lse_combine_stacked(parts, axis=2)
+
+
+def gather_pages(pool: jax.Array, page_indices: jax.Array, layer=None
+                 ) -> jax.Array:
+    """Plain gather of each sequence's pages into a contiguous cache:
+    pool [(L,) P, Hkv, ps, ...] -> [B, Hkv, pages*ps, ...]."""
+    if layer is not None:
+        pool = jax.lax.dynamic_index_in_dim(pool, layer, 0, False)
+    g = pool[page_indices]                       # [B, pages, Hkv, ps, ...]
+    g = jnp.moveaxis(g, 2, 1)                    # [B, Hkv, pages, ps, ...]
+    return g.reshape(*g.shape[:2], -1, *g.shape[4:])
+
+
+def choose_impl(impl: str | None = None) -> str:
+    return platform.resolve_impl(impl, GPU_IMPL, ("kernel", "xla"))
+
+
+@functools.partial(jax.jit, static_argnames=("scale", "kv_splits", "impl"))
 def paged_decode(
     q: jax.Array,
     k_pages: jax.Array,
@@ -211,113 +167,42 @@ def paged_decode(
     k_scale_pages: jax.Array | None = None,
     v_scale_pages: jax.Array | None = None,
     scale: float | None = None,
-    pages_per_compute_block: int = 4,
+    kv_splits: int | None = None,
     layer: jax.Array | int | None = None,
-    interpret: bool | None = None,
+    impl: str | None = None,
 ) -> jax.Array:
     """Single-token attention over a paged KV cache.
 
     q:            [B, Hq, D]
-    k/v_pages:    [n_pages, Hkv, page_size, D] shared page pool
-                  (page-major across heads — see module docstring), OR
-                  the full per-layer pool [L, n_pages, Hkv, page_size, D]
-                  together with ``layer`` — the layer is selected by the
-                  in-kernel DMAs (scalar prefetch), so no layer slice of
-                  the pool is ever materialized (an XLA slice feeding the
-                  custom call would copy the whole layer's pool per call)
+    k/v_pages:    [n_pages, Hkv, page_size, D] shared page pool, OR the
+                  full per-layer pool [L, n_pages, Hkv, page_size, D]
+                  together with ``layer``
     lengths:      [B] int32 valid tokens per sequence (>= 1)
     page_indices: [B, pages_per_seq] int32 logical->physical page map
-    k/v_scale_pages: [(L,) n_pages, Hkv, page_size] f32 for int8 pages
-    layer: scalar int selecting the pool layer when pages are 5-D
-    Returns O [B, Hq, D] in q's dtype.
-
-    NOTE (measured, v5e): the POOL WRITES feeding this call must be
-    per-sequence dynamic_update_slice, not advanced-index scatters — a
-    scatter into a ~GB pool is not done in place by XLA in the serving
-    decode loop and copies the whole pool per layer (step time scaled
-    linearly with pool bytes until models/engine.py switched to DUS
-    writes). Aliasing the pools through this call as extra outputs
-    (input_output_aliases) was also tried and REGRESSED 2x — the
-    aliased ANY-space outputs defeat Pallas' own buffer handling; do
-    not re-try.
+    k/v_scale_pages: [(L,) n_pages, Hkv, page_size] f32 for int8/fp8 pages
+    Returns O [B, Hq, D] in q's dtype. ``impl``: "kernel" (Triton), "xla"
+    (gather the pages, then the plain decode) or None.
     """
     B, Hq, D = q.shape
     layered = k_pages.ndim == 5
     assert layered == (layer is not None), \
         "pass `layer` iff the page pools carry a leading layer dimension"
-    n_pages, Hkv, page_size, _ = k_pages.shape[1:] if layered \
-        else k_pages.shape
-    pages_per_seq = page_indices.shape[1]
-    assert Hq % Hkv == 0
-    G = Hq // Hkv
+    assert (k_scale_pages is None) == (v_scale_pages is None)
     if scale is None:
         scale = float(1.0 / D ** 0.5)
-    ppcb = min(pages_per_compute_block, pages_per_seq)
-    assert pages_per_seq % ppcb == 0, (
-        f"pages_per_seq {pages_per_seq} % {ppcb} != 0")
-    n_blocks = pages_per_seq // ppcb
-    quantized = k_scale_pages is not None
-    assert (v_scale_pages is not None) == quantized
-
-    qg = q.reshape(B, Hkv, G, D)
-
-    tensor_in_specs = [
-        pl.BlockSpec((1, Hkv, G, D),
-                     lambda b, i, *refs: (b, 0, 0, 0)),
-        pl.BlockSpec(memory_space=pl.ANY),       # k_pages (manual DMA)
-        pl.BlockSpec(memory_space=pl.ANY),       # v_pages
-    ]
-    args = [qg, k_pages, v_pages]
-    n_sem_kinds = 2
-    scratch = [
-        pltpu.VMEM((2, ppcb, Hkv, page_size, D), k_pages.dtype),  # k window
-        pltpu.VMEM((2, ppcb, Hkv, page_size, D), v_pages.dtype),  # v window
-    ]
-    if quantized:
-        tensor_in_specs += [pl.BlockSpec(memory_space=pl.ANY)] * 2
-        args += [k_scale_pages, v_scale_pages]
-        scratch += [
-            pltpu.VMEM((2, ppcb, Hkv, page_size), jnp.float32),
-            pltpu.VMEM((2, ppcb, Hkv, page_size), jnp.float32),
-        ]
-        n_sem_kinds = 4
-    scratch += [
-        pltpu.SemaphoreType.DMA((n_sem_kinds, 2, ppcb)),
-        pltpu.SMEM((2,), jnp.int32),                 # [buffer slot, started]
-        pltpu.VMEM((G, Hkv, 128), jnp.float32),      # m
-        pltpu.VMEM((G, Hkv, 128), jnp.float32),      # l
-        pltpu.VMEM((G, Hkv, D), jnp.float32),        # acc
-    ]
-
-    prefetch = [lengths.astype(jnp.int32), page_indices.astype(jnp.int32)]
-    if layered:
-        prefetch.append(jnp.atleast_1d(jnp.asarray(layer, jnp.int32)))
-    n_prefetch = 2 + layered
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=n_prefetch,
-        grid=(B, n_blocks),
-        in_specs=tensor_in_specs,
-        out_specs=pl.BlockSpec((1, Hkv, G, D),
-                               lambda b, i, *refs: (b, 0, 0, 0)),
-        scratch_shapes=scratch,
-    )
-
-    out = pl.pallas_call(
-        functools.partial(
-            _paged_kernel, scale=scale, page_size=page_size, ppcb=ppcb,
-            n_blocks=n_blocks, batch=B, G=G, quantized=quantized,
-            layered=layered),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((B, Hkv, G, D), q.dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary"),
-            # page-major windows [2, ppcb, Hkv, ps, D] x2 + f32 compute
-            # temporaries exceed Mosaic's ~16 MB default scoped-VMEM cap
-            # at serving shapes; v5e has 128 MB (same fix as chunk8_plan)
-            vmem_limit_bytes=100 * 2**20,
-        ),
-        interpret=interpret_default(interpret),
-    )(*prefetch, *args)
-
-    return out.reshape(B, Hq, D)
+    if choose_impl(impl) == "kernel":
+        part = _paged_partial_kernel(q, k_pages, v_pages, lengths,
+                                     page_indices, k_scale_pages,
+                                     v_scale_pages, scale, layer, kv_splits)
+    else:
+        gl = functools.partial(gather_pages, page_indices=page_indices,
+                               layer=layer)
+        quantized = k_scale_pages is not None
+        part = _decode_partial_xla(
+            q, gl(k_pages), gl(v_pages), lengths,
+            gl(k_scale_pages) if quantized else None,
+            gl(v_scale_pages) if quantized else None, scale, None)
+    part = AttnPartial(o=part.o.reshape(B, Hq, D),
+                       m=part.m.reshape(B, Hq, 1),
+                       s=part.s.reshape(B, Hq, 1))
+    return lse_finalize(part, out_dtype=q.dtype)

@@ -1,79 +1,53 @@
-"""Fused block-dequant matmul/matvec Pallas kernels
-(Q8_0 / Q4_0 / Q4_K / Q6_K).
+"""Block-quantized linears (Q8_0 / Q4_0 / Q4_K / Q6_K): device layout, the
+plain XLA path, and the fused dequant-matvec kernel for decode.
 
-The BASELINE.json north-star subsystem: GGML-style weight-only block
-quantization dequantized *inside* the matmul kernel, so decode-time matvecs
-stream quantized bytes from HBM at (near-)roofline bandwidth instead of
-materializing f32/bf16 weights. The reference repo has no quant path — this
-is the driver-mandated extension (SURVEY.md §7 R8) — but the kernel shape
-follows the reference's WMMA GEMM structure (one output tile per grid step,
-operands pipelined HBM→VMEM, /root/reference/src/misc/tensor-core.cu:87-178)
-re-expressed for the MXU/VPU.
+GGML-style weight-only block quantization, dequantized *inside* the matvec
+so decode streams the stored bytes (4.5-8.5 bits per weight) from device
+memory once, instead of a dense bf16 weight (16 bits). The reference repo has
+no quant path; this is the driver-mandated extension (SURVEY.md §7 R8).
 
-TPU-first layout: the "interleaved" column order
-------------------------------------------------
-Mosaic (the Pallas TPU compiler) has no consecutive-element expand — you
-cannot broadcast a per-32-block scale row [K/32] to [K] in-kernel (verified:
-``broadcast_to + reshape`` and ``jnp.repeat`` both fail to lower, and
-``pltpu.repeat`` only handles lane counts that tile cleanly). So weight
-columns are stored permuted:
+Stored layout: the "interleaved" column order
+---------------------------------------------
+Weight columns are stored permuted (a storage choice made once at load):
 
     device lane j  <->  logical element e = super*256 + pos8*32 + pos32
     (a hierarchical (K/256, 8, 32) -> (32, 8, K/256) transpose; a 2-level
     (K/32, 32) -> (32, K/32) version covers K % 256 != 0 for q8_0/q4_0)
 
-Under this order the scale-block index of device lane j is ``j mod (K/32)``
-— so viewing the payload as a 3-D tile ``[N, sub_rows, K/32]`` puts the
-block index on the LANE axis and the position-within-block on the SUBLANE
-axis, making per-block scaling a plain sublane *broadcast* and the partial
-reduction a sublane-axis *sum*. No repeats, no shuffles, any K that is a
-multiple of 32. (The 2-D ``pltpu.repeat``-based MXU variant is kept for
-128-aligned K/32, where it is fastest for q8_0.)
+Under this order the scale block of device lane j is ``j mod (K/32)``, and
+the two lanes i and i + K/2 always share a block. For K % 4096 == 0 with
+K > 4096 the interleave is *segment-local* (each 4096-element segment on its
+own, the nibble halves separated globally), and byte-lane i's block is
+``(i // 2048)*128 + i % 128``. ``_block_cols`` tabulates the block of every
+byte-lane, so the kernel and the XLA path handle both orders with one table.
+
+Because the order is only a permutation of K, a product needs x in the same
+order: ``permute_activations`` reorders x once per call (a few KB).
 
 Q4 nibble packing: byte i holds device lanes i (low nibble) and i + K/2
-(high nibble). The two lanes share a scale block, so the matvec needs no
-unpack interleave: two bitops + two multiplies (the analog of the reference
-keeping V transposed-contiguous so the hot loop needs no layout fixups,
-/root/reference/src/flash_row_float.h:176-177 — pick the storage layout the
-kernel wants, once, at load time).
+(high nibble, stored XOR 8 — "signed-friendly": the int8 value of the byte
+is ``lo + 16*hi - 128``). Q8_0 stores lanes [0, K/2) and [K/2, K) as the two
+halves of one int8 row, so every format has the same lo/hi lane pairing.
 
-Q4_K device encodings
----------------------
-Two scale encodings exist, selected by ``QuantLinear.enc``:
+Q4_K encodings (``QuantLinear.enc``)
+------------------------------------
+``"e"`` ("Q4_K-E", default): sub-scales folded at load time into per-32-block
+effective scales ``es = bf16(f32(d)*sc)`` and mins ``em = bf16(f32(dmin)*mn)``
+— 5.0 bits/weight stored. ``"s6"`` (opt-in storage encoding, K % 4096 == 0):
+the GGML-faithful 6-bit sub-scales one byte each plus bf16 superblock scales
+(4.625 bits/weight); every product expands it to "e" first (``scales_to_e``).
 
-``enc="e"`` ("Q4_K-E", the DEFAULT and performance encoding): sub-scales
-folded at load time into per-32-block effective scales
-``es = bf16(f32(d)*sc)`` and mins ``em = bf16(f32(dmin)*mn)`` — 5.0
-bits/weight streamed, superblock-free kernel.
-
-``enc="s6"`` (OPT-IN storage/wire encoding, K % 4096 == 0 only): the
-GGML-faithful compact encoding. Per row it stores the 6-bit
-sub-scales/mins one byte each, lane-concatenated into ONE int8 array
-(``es`` [N, 2*K/32]: sc-half then mn-half, values 0..63) plus the fp16
-superblock scales rounded to bf16 (``d`` [N, 2*K/256]: d-half then
-dmin-half, LOGICAL superblock order) — 18.5 bytes per 32 weights =
-**4.625 bits/weight** stored, vs GGML's 4.5 wire bits and Q4_K-E's 5.0.
-Every q4 kernel decodes it in-kernel (effective scales via a bf16 dot
-with the constant one-hot superblock-expansion matrix
-``E_dd[s, r] = 1 iff perm32[r]//8 == s`` — layout-agnostic: std,
-segment-local and wof orders just change perm32 — then an int8 upcast
-and one [bn, 2*kb] multiply; bf16 rounding of d is ~0.4%, an order below
-the 4-bit quantization step).
-
-**Why s6 is not the streaming default** (measured dead end, v5e,
-tools/probe_s6.py, same-day bracketed): the 7.5% HBM byte saving is
-worth ~5.9 us/Diter at the bench shape, but every decode lowering costs
-more than that on the hot path — "cast" (VPU int8 upcast) +9.1 us,
-"eyedot" (MXU eye-dot upcast) +16.4 us, "constdd" (whole-array dd
-const + in-kernel slice) +17.8 us; even streaming the s6 operands with
-NO decode math at all ("ones") is +4.3 us, i.e. the skinny [bn, 2S]
-bf16 dd side-channel and the extra windowed operand alone eat the
-saving. Use s6 for checkpoint/interchange size and expand once at load
-(``scales_to_e``) when serving.
-
-Either way the min/offset terms never touch the weights: they contribute
-``sum_b em[n,b] * xs[b]`` with xs the per-block sums of x, computed
-in-kernel from the activation tile.
+Decode kernel (``_qmv_kernel``, Pallas through Triton)
+------------------------------------------------------
+In either order a row's K/2 byte-lanes form a [S, 16, kbl] grid in which
+lane (s, t, c) has scale column s*kbl + c (S = 1 and kbl = K/32 for the
+global interleave; kbl = 128 per segment for the segment-local one). Grid
+(N / block_n, k_splits). Each block walks its share of the (s, c) columns
+``cc`` at a time: it loads the [block_n, cc] scales once, the [block_n, 16,
+cc] payload bytes that share them, dequantizes in registers, and multiplies
+against x with ``pl.dot`` (x padded to 16 rows, the smallest tensor-core
+tile), or for a single row of x with a multiply-add on the CUDA cores. The k_splits partial sums are added in XLA. Nothing but the
+stored bytes crosses device memory.
 """
 
 from __future__ import annotations
@@ -86,16 +60,21 @@ import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ggml_cuda_experiments_tpu.oracle import quant as quant_ref
-from ggml_cuda_experiments_tpu.utils.platform import interpret_default
+from ggml_cuda_experiments_tpu.utils import platform
 
 QK = quant_ref.QK            # 32
 QK_K = quant_ref.QK_K        # 256
 
-# max batch the VPU-looped matvec path accepts before falling back
-_VPU_MAX_B = 8
+# Implementation on the card for up to KERNEL_MAX_ROWS rows of x: the fused
+# kernel, which beat XLA at 1-32 rows on the card (PERF.md; a 64-row tile
+# no longer fits shared memory); else XLA's dequantize + cuBLAS bf16 dot
+# (prefill, where the dequant is amortised over many rows).
+GPU_IMPL = "kernel"
+KERNEL_MAX_ROWS = 32
+KERNEL_FMTS = ("q8_0", "q4_0", "q4_k")
 
 
 # ---------------------------------------------------------------------------
@@ -103,13 +82,6 @@ _VPU_MAX_B = 8
 # ---------------------------------------------------------------------------
 
 # Segment size for the segment-local interleave (K > _SEG, K % _SEG == 0).
-# Keeping the interleave *within* 4096-element segments caps the scale-block
-# lane width at 128 everywhere: the chunk8 selector dot then contracts onto
-# exactly one MXU output tile per segment, so its compute is N*K*64 MACs
-# (linear in K, ~0.47x the weight-DMA time at the int8 MXU rate) instead of
-# N*K*kb/2 (quadratic in K — 3.1x the DMA time at K=12288, which made the
-# 7B w_down matvec compute-bound). For K == _SEG the segment layout equals
-# the global interleave, so only K > _SEG tensors change encoding.
 _SEG = 4096
 
 
@@ -127,10 +99,7 @@ def _perm(k: int) -> np.ndarray:
     separated globally — lanes [0, K/2) are the segments' low halves in
     segment order, lanes [K/2, K) the high halves. Byte i of the packed
     payload then still pairs lanes (i, i + K/2), and those two lanes still
-    share a scale block, so _pack_halves and every kernel's xl/xh split
-    are layout-agnostic; only block-indexed code (selector, block sums,
-    scale expansion) switches from ``lane mod (K/32)`` to
-    ``(lane segment)*128 + lane mod 128``."""
+    share a scale block."""
     assert k % QK == 0, f"K={k} must be a multiple of {QK}"
     s = _n_segs(k)
     if s > 1:
@@ -148,7 +117,7 @@ def _perm(k: int) -> np.ndarray:
 
 @functools.cache
 def _perm32(k: int) -> np.ndarray:
-    """Per-32-block scale lane order: perm32[r] = logical block index.
+    """Per-32-block scale column order: perm32[r] = logical block index.
     Segment-local layouts store the segments' 128-block groups in segment
     order (scale column c*128 + beta holds segment c's local block beta)."""
     s = _n_segs(k)
@@ -167,84 +136,20 @@ def _inv_perm(k: int) -> np.ndarray:
     return np.argsort(_perm(k))
 
 
-# --- "wof" layout: attention-output-major interleave --------------------
-#
-# Purpose: let the fused attention kernel (ops/fused_attention.py) feed the
-# chunk8 matvec on W_o DIRECTLY from the attention output o[h, d] with no
-# in-kernel permute. Device lane j = t*kb + l (t in 0..31, l in 0..kb-1)
-# holds logical element e = (l % nH)*128 + (l // nH)*32 + t, nH = K/128 —
-# i.e. the [32, kb] activation tile xp satisfies
-#     xp[t, c*nH + h] = o[h, 32*c + t]
-# which is exactly a sublane-slice rearrangement of the TRANSPOSED
-# attention accumulator (oT[d, h]): xp[:, c*nH : (c+1)*nH] = oT[32c:32c+32].
-# The kernel-facing contract is identical to the global interleave (scale
-# block of lane j is a function of j mod kb, nibble halves (j, j+K/2) share
-# a block), so every existing q4 kernel works unchanged; only the
-# activation-permute and the scale COLUMN order (perm32) differ. Lossless:
-# a pure storage shuffle of the same GGML Q4_K blocks (no requantization).
-
-
-def _wof_nh(k: int) -> int:
-    assert k % 128 == 0 and _n_segs(k) == 1, \
-        f"wof layout needs K%128==0 and K<= {_SEG} (got {k})"
-    return k // 128
-
-
 @functools.cache
-def _perm_wof(k: int) -> np.ndarray:
-    nh = _wof_nh(k)
-    kb = k // QK
-    j = np.arange(k)
-    t, l = j // kb, j % kb
-    return (l % nh) * 128 + (l // nh) * QK + t
-
-
-@functools.cache
-def _perm32_wof(k: int) -> np.ndarray:
-    nh = _wof_nh(k)
-    l = np.arange(k // QK)
-    return 4 * (l % nh) + l // nh
-
-
-@functools.cache
-def _inv_perm_wof(k: int) -> np.ndarray:
-    return np.argsort(_perm_wof(k))
-
-
-def permute_activations_wof(x: jax.Array) -> jax.Array:
-    """Reorder x [..., K] into the wof lane order (transposes only):
-    out[t*kb + c*nH + h] = x[h*128 + 32c + t]."""
-    *lead, k = x.shape
-    nh = _wof_nh(k)
-    nl = len(lead)
-    return (x.reshape(*lead, nh, 4, QK)
-            .transpose(*range(nl), nl + 2, nl + 1, nl)
-            .reshape(*lead, k))
-
-
-def _layout_perms(k: int, layout: str):
-    if layout == "wof":
-        return _perm_wof(k), _perm32_wof(k)
-    return _perm(k), _perm32(k)
-
-
-def _permute_x(x: jax.Array, layout: str) -> jax.Array:
-    return (permute_activations_wof(x) if layout == "wof"
-            else permute_activations(x))
-
-
-def _inv_perm_layout(k: int, layout: str) -> np.ndarray:
-    return _inv_perm_wof(k) if layout == "wof" else _inv_perm(k)
+def _block_cols(k: int) -> np.ndarray:
+    """Stored scale column of each byte-lane i in [0, K/2) — the lanes i
+    and i + K/2 share it. int32 [K/2]."""
+    i = np.arange(k // 2)
+    s = _n_segs(k)
+    if s > 1:
+        half = _SEG // 2
+        return ((i // half) * 128 + i % 128).astype(np.int32)
+    return (i % (k // QK)).astype(np.int32)
 
 
 def _q6_seg(k: int) -> bool:
-    """True when K uses the SEGMENT-LOCAL q6 lane order (K % 4096 == 0):
-    byte-lane segments of 1024 bytes map their 16-element scale blocks
-    onto 128 selector columns (block of byte-lane i = (i//1024)*128 +
-    i%128, both nibbles of a byte in the same block) — the layout that
-    lets the hybrid kernel run the nibble planes as int8 MXU dots with
-    HALF the MACs of the global interleave (tools/q6_probe.py: nib_seg
-    63.0%% vs nib_global 50.8%% of roofline)."""
+    """True when K uses the SEGMENT-LOCAL q6 lane order (K % 4096 == 0)."""
     return k % 4096 == 0
 
 
@@ -303,11 +208,6 @@ def permute_activations(x: jax.Array) -> jax.Array:
             .reshape(*lead, k))
 
 
-def _rep_aligned(kb: int) -> bool:
-    """Lane counts for which pltpu.repeat is known-good on Mosaic."""
-    return kb % 128 == 0 or kb in (8, 16, 32, 64)
-
-
 # ---------------------------------------------------------------------------
 # device container
 # ---------------------------------------------------------------------------
@@ -320,8 +220,8 @@ class QuantLinear:
 
     fields per format (all column-permuted):
       q8_0: qs int8  [N, K],    d  f32  [N, K/32]
-      q4_0: qs uint8 [N, K/2],  d  f32  [N, K/32]          (q - 8 at dequant)
-      q4_k: qs uint8 [N, K/2],  es bf16 [N, K/32], em bf16 [N, K/32]
+      q4_0: qs int8  [N, K/2],  d  f32  [N, K/32]          (q - 8 at dequant)
+      q4_k: qs int8  [N, K/2],  es bf16 [N, K/32], em bf16 [N, K/32]
             ("Q4_K-E": effective scales/mins, see module docstring)
       q6_k: qs int8  [N, K/2] (low-4-bit halves, signed-friendly packed),
             qh int8  [N, K/4] (2-bit planes: byte i = lanes i, i+K/4,
@@ -330,7 +230,7 @@ class QuantLinear:
     """
 
     fmt: str = dataclasses.field(metadata=dict(static=True))
-    # logical (pre-shard) shape; informational only — kernels derive their
+    # logical (pre-shard) shape; informational only — products derive their
     # dimensions from the arrays so shard_map-local shards work unchanged
     shape: tuple[int, int] = dataclasses.field(metadata=dict(static=True))
     qs: jax.Array = None
@@ -338,13 +238,8 @@ class QuantLinear:
     es: jax.Array | None = None
     em: jax.Array | None = None
     qh: jax.Array | None = None
-    # column order: "std" (the interleave above) or "wof" (attention-
-    # output-major, see _perm_wof) — same kernel contract, different
-    # activation permute / logical meaning
-    layout: str = dataclasses.field(default="std",
-                                    metadata=dict(static=True))
     # q4_k scale encoding: "e" (pre-expanded bf16 effective scales) or
-    # "s6" (streaming 6-bit scales + bf16 superblock d — module docstring)
+    # "s6" (6-bit scales + bf16 superblock d — module docstring)
     enc: str = dataclasses.field(default="e", metadata=dict(static=True))
 
     @property
@@ -366,7 +261,7 @@ _FIELDS = {
     "q4_k": ("qs", "es", "em"),
     "q6_k": ("qs", "qh", "es"),
 }
-_FIELDS_S6 = ("qs", "es", "d")    # q4_k streaming: es = sc|mn combined
+_FIELDS_S6 = ("qs", "es", "d")    # q4_k s6: es = sc|mn combined
 
 
 def _fields(ql: "QuantLinear") -> tuple[str, ...]:
@@ -375,105 +270,14 @@ def _fields(ql: "QuantLinear") -> tuple[str, ...]:
     return _FIELDS[ql.fmt]
 
 
-def _lane_div(fmt: str, field: str, s6: bool = False) -> int:
-    """Lanes-per-row divisor of K for each device field."""
-    if field == "qs":
-        return 1 if fmt == "q8_0" else 2
-    if fmt == "q6_k":
-        return {"qh": 4, "es": 16}[field]
-    if s6 and field == "d":
-        return QK_K // 2          # [N, 2*K/256]: d-half then dmin-half
-    if s6 and field == "es":
-        return QK // 2            # [N, 2*K/32]: sc-half then mn-half
-    return QK        # d / es / em of the 32-block formats
-
-
-@functools.cache
-def _dd_expand_np(k: int, layout: str = "std") -> np.ndarray:
-    """Constant one-hot superblock-expansion matrix for the s6 encoding:
-    ``E_dd`` [2S, 2*kb] bf16 with S = K/256, kb = K/32, block-diagonal in
-    its two halves — (d @ E_dd)[:, :kb] broadcasts each row's superblock
-    d to its 8 scale lanes (lane order = perm32 of ``layout``), and
-    [:, kb:] does the same for dmin. One matrix serves every layout
-    because it is built from perm32 itself."""
-    _, p32 = _layout_perms(k, layout)
-    sb = np.asarray(p32) // 8                 # [kb] superblock of lane r
-    s_tot = k // QK_K
-    kb = k // QK
-    e = np.zeros((2 * s_tot, 2 * kb), ml_dtypes.bfloat16)
-    e[sb, np.arange(kb)] = 1
-    e[s_tot + sb, kb + np.arange(kb)] = 1
-    return e
-
-
-@functools.cache
-def _eye_sm_np(kb2: int) -> np.ndarray:
-    """int8 identity for the s6 eye-dot upcast (see module docstring)."""
-    return np.eye(kb2, dtype=np.int8)
-
-
-def _eye_operand(kb2: int) -> np.ndarray:
-    """s6 eye operand for the CURRENT decode variant: the real [2kb, 2kb]
-    int8 identity only for "eyedot" (which dots against it); every other
-    lowering never reads the ref, so a minimal [8, 128] placeholder keeps
-    the operand lists uniform without streaming ~590 KB of dead identity
-    per dispatch (K=12288)."""
-    if S6_DECODE_VARIANT == "eyedot":
-        return _eye_sm_np(kb2)
-    return np.zeros((8, 128), np.int8)
-
-
-# Probe hook (tools/probe_s6.py): selects the s6 decode lowering so the
-# cost of each stage can be measured in isolation on the chip. "cast" is
-# the best measured lowering (97.7 us/Diter vs eyedot 105.0, constdd
-# 106.4 at the bench shape); "ddonly"/"ones" produce WRONG scales and
-# exist only for ablation. Change + qmatmul.clear_cache() to retrace.
-S6_DECODE_VARIANT = "cast"
-
-
-def _decode_es_em_s6(sm_ref, dd_ref, edd_ref, eye_ref):
-    """In-kernel s6 scale decode -> (es, em) f32 [bn, kb].
-    sm: int8 ref [bn, 2*kb] (sc-half | mn-half); dd: bf16 ref [bn, 2S];
-    edd: bf16 constant [2S, 2*kb] (see _dd_expand_np); eye: int8 identity
-    [2*kb, 2*kb] for the "eyedot" variant only (a placeholder otherwise —
-    _eye_operand). kb must be 128-aligned (guaranteed: s6 is only produced
-    for K % 4096 == 0). The DEFAULT lowering is "cast": a direct
-    int8->int32->f32 VPU upcast of the [bn, 2kb] scale tile — measured
-    fastest (97.7 us/Diter vs eyedot 105.0 at the bench shape); the MXU
-    eye-dot upcast is kept as a probe variant."""
-    bn = sm_ref.shape[0]
-    if dd_ref.shape[0] != bn:          # const whole-array dd ("constdd")
-        dd = dd_ref[pl.ds(pl.program_id(0) * bn, bn), :]
-    else:
-        dd = dd_ref[...]
-    zdd = jax.lax.dot(dd, edd_ref[...],
-                      preferred_element_type=jnp.float32)   # [bn, 2kb]
-    kb = zdd.shape[1] // 2
-    if S6_DECODE_VARIANT == "ones":          # DMA only, no sm use (probe)
-        es = zdd[:, :kb] * 0.0 + 1.0
-        return es, es
-    if S6_DECODE_VARIANT == "ddonly":        # skip the sm product (probe)
-        return zdd[:, :kb], zdd[:, kb:]
-    if S6_DECODE_VARIANT in ("cast", "constdd"):   # direct VPU upcast
-        smf = sm_ref[...].astype(jnp.int32).astype(jnp.float32)
-        prod = zdd * smf
-        return prod[:, :kb], prod[:, kb:]
-    zsm = jax.lax.dot(sm_ref[...], eye_ref[...],
-                      preferred_element_type=jnp.int32)     # [bn, 2kb]
-    prod = zdd * zsm.astype(jnp.float32)
-    return prod[:, :kb], prod[:, kb:]
-
-
 def _pack_halves(q_dev: np.ndarray) -> np.ndarray:
     """[N, K] nibble values (0..15) -> [N, K/2] int8: lane i | lane i+K/2.
 
     The high nibble is stored XOR 8 ("signed-friendly" packing): the int8
-    value of the byte is then exactly ``lo + 16*hi - 128``, so kernels can
-    use the byte with ONE int8->f32 cast and recover the true high nibble
-    arithmetically (``hi = floor((p+128)/16)``) — no shift, no second cast.
-    This is the TPU answer to the reference keeping V transposed-contiguous
-    so its hot loop needs no layout fixups (flash_row_float.h:176-177):
-    choose the storage encoding the kernel wants, once, at load time."""
+    value of the byte is then exactly ``lo + 16*hi - 128`` (the analog of
+    the reference keeping V transposed-contiguous so its hot loop needs no
+    layout fixups, flash_row_float.h:176-177: choose the storage encoding
+    the kernel wants, once, at load time)."""
     k = q_dev.shape[-1]
     lo = q_dev[:, : k // 2].astype(np.uint8)
     hi = q_dev[:, k // 2:].astype(np.uint8)
@@ -483,7 +287,6 @@ def _pack_halves(q_dev: np.ndarray) -> np.ndarray:
 def q4_k_effective(t: quant_ref.Q4_K) -> tuple[np.ndarray, np.ndarray]:
     """The Q4_K-E contract: per-32-block effective scale/min in bf16,
     LOGICAL block order. Shared by from_oracle and the tests."""
-    n, k = t.shape
     d8 = np.repeat(t.d, 8, axis=-1)          # [N, K/32] f32 (exact)
     dm8 = np.repeat(t.dmin, 8, axis=-1)
     es = (d8 * t.sc.astype(np.float32)).astype(ml_dtypes.bfloat16)
@@ -491,17 +294,12 @@ def q4_k_effective(t: quant_ref.Q4_K) -> tuple[np.ndarray, np.ndarray]:
     return es, em
 
 
-def from_oracle(t, layout: str = "std", enc: str = "auto") -> QuantLinear:
+def from_oracle(t, enc: str = "auto") -> QuantLinear:
     """Convert an oracle-quantized tensor (logical planar NumPy layout) to
-    interleaved device arrays. ``layout``: "std" or "wof" (q4_k only).
-    ``enc`` (q4_k only): "auto" (currently resolves to "e" — s6 is the
-    measured-slower opt-in storage encoding), "s6", or "e" — see the
-    module docstring."""
+    interleaved device arrays. ``enc`` (q4_k only): "auto" (= "e"), "s6",
+    or "e" — see the module docstring."""
     n, k = t.shape
-    if layout != "std":
-        assert layout == "wof" and isinstance(t, quant_ref.Q4_K), \
-            f"layout {layout!r} supports q4_k only"
-    p, p32 = _layout_perms(k, layout)
+    p, p32 = _perm(k), _perm32(k)
     if isinstance(t, quant_ref.Q8_0):
         return QuantLinear(
             fmt="q8_0", shape=(n, k),
@@ -517,35 +315,24 @@ def from_oracle(t, layout: str = "std", enc: str = "auto") -> QuantLinear:
     if isinstance(t, quant_ref.Q4_K):
         q = quant_ref.unpack_nibbles(
             t.qs.reshape(n, k // QK, QK // 2)).reshape(n, k)
-        if enc == "auto":
-            # "e" is the PERFORMANCE default: a same-day on-chip ablation
-            # (tools/probe_s6.py, v5e, bracketed against drift) showed
-            # every s6 decode lowering costs more per matvec than its
-            # 7.5% byte saving returns — best s6 97.7 us/Diter vs e
-            # 88.6 (85.9% roofline); merely adding the skinny [bn, 2S]
-            # dd operand + expansion dot costs ~4-8 us before any sm
-            # math. s6 remains the opt-in STORAGE encoding (smaller
-            # checkpoints; expand with scales_to_e at load for e-speed).
-            enc = "e"
-        if enc == "s6" and k % (128 * QK) != 0:
+        if enc == "auto" or (enc == "s6" and k % (128 * QK) != 0):
             enc = "e"                        # s6 needs kb % 128 == 0
         if enc == "s6":
-            # streaming encoding: raw 6-bit sc/mn one byte each, lane-
-            # concatenated (sc-half | mn-half, lane order), bf16
-            # superblock d|dmin in LOGICAL order (the in-kernel E_dd dot
-            # owns the lane mapping)
+            # raw 6-bit sc/mn one byte each, lane-concatenated (sc-half |
+            # mn-half, scale column order), bf16 superblock d|dmin in
+            # LOGICAL order
             sm = np.concatenate([t.sc[:, p32], t.mn[:, p32]],
                                 axis=1).astype(np.int8)
             dd = np.concatenate([t.d, t.dmin], axis=1
                                 ).astype(ml_dtypes.bfloat16)
             return QuantLinear(
-                fmt="q4_k", shape=(n, k), layout=layout, enc="s6",
+                fmt="q4_k", shape=(n, k), enc="s6",
                 qs=jnp.asarray(_pack_halves(q[:, p])),
                 es=jnp.asarray(sm),
                 d=jnp.asarray(dd))
         es, em = q4_k_effective(t)
         return QuantLinear(
-            fmt="q4_k", shape=(n, k), layout=layout,
+            fmt="q4_k", shape=(n, k),
             qs=jnp.asarray(_pack_halves(q[:, p])),
             es=jnp.asarray(es[:, p32]),
             em=jnp.asarray(em[:, p32]))
@@ -556,11 +343,7 @@ def from_oracle(t, layout: str = "std", enc: str = "auto") -> QuantLinear:
         hi2 = v >> 4                          # 2-bit high planes
         kq = k // 4
         # byte i packs the four planes of lanes (i, i+K/4, i+K/2, i+3K/4)
-        # as TWO signed-friendly nibbles (h0+4*h1 | (h2+4*h3)^8 << 4, via
-        # _pack_halves) so the kernel unpacks with the same cheap f32
-        # floor chain as the 4-bit payload — no int32 widening/shifts
-        # (round 4; the old 4x2-bit bitfield packing needed an int8->
-        # int32 relayout plus four shift/AND/cast chains per tile)
+        # as TWO signed-friendly nibbles (h0+4*h1 | (h2+4*h3)^8 << 4)
         u_pairs = np.concatenate(
             [hi2[:, :kq] + 4 * hi2[:, kq:2 * kq],
              hi2[:, 2 * kq:3 * kq] + 4 * hi2[:, 3 * kq:]], axis=1)
@@ -578,1708 +361,317 @@ def from_oracle(t, layout: str = "std", enc: str = "auto") -> QuantLinear:
     raise TypeError(f"unsupported oracle tensor {type(t)}")
 
 
-def quantize(w: np.ndarray, fmt: str, layout: str = "std",
-             enc: str = "auto") -> QuantLinear:
-    """Quantize a float [N, K] weight into device arrays (native C++ codec
-    when built — bit-identical to the oracle — else the NumPy oracle)."""
+def quantize(w: np.ndarray, fmt: str, enc: str = "auto") -> QuantLinear:
+    """Quantize a float [N, K] weight into device arrays (native C++ codec,
+    bit-identical to the oracle)."""
     from ggml_cuda_experiments_tpu.utils import native
-    return from_oracle(native.quantize(np.asarray(w), fmt), layout, enc)
+    return from_oracle(native.quantize(np.asarray(w), fmt), enc)
 
 
 def scales_to_e(ql: QuantLinear) -> QuantLinear:
-    """XLA expansion of an s6-encoded q4_k weight to the "e" encoding
-    (bf16 effective scales). Used by the few dispatch paths that have no
-    in-kernel s6 decode (B 2-8 VPU loop) — costs one [N, K/32] bf16
-    materialization per call, so the hot paths decode in-kernel instead."""
+    """Expand an s6-encoded q4_k weight to the "e" encoding (f32 effective
+    scales = f32(bf16 d) * sc6, not re-rounded). Identity otherwise."""
     if not (ql.fmt == "q4_k" and ql.enc == "s6"):
         return ql
     n, k = ql.array_shape
     kb = k // QK
     s_tot = k // QK_K
-    sb = jnp.asarray(
-        np.asarray(_layout_perms(k, ql.layout)[1]) // 8)   # [kb]
+    sb = jnp.asarray(np.asarray(_perm32(k)) // 8)            # [kb]
     d = jnp.take(ql.d[:, :s_tot], sb, axis=1).astype(jnp.float32)
     dm = jnp.take(ql.d[:, s_tot:], sb, axis=1).astype(jnp.float32)
-    # f32 products, NOT re-rounded to bf16: the expansion must agree
-    # bit-for-bit with the in-kernel s6 decode (f32 = f32(bf16 d) * sc6)
-    # so every dispatch path of one weight computes identical scales
     es = d * ql.es[:, :kb].astype(jnp.float32)
     em = dm * ql.es[:, kb:].astype(jnp.float32)
-    return QuantLinear(fmt="q4_k", shape=ql.shape, layout=ql.layout,
-                       enc="e", qs=ql.qs, es=es, em=em)
+    return QuantLinear(fmt="q4_k", shape=ql.shape, enc="e",
+                       qs=ql.qs, es=es, em=em)
 
 
 # ---------------------------------------------------------------------------
-# 3-D VPU matvec kernel (any K multiple of 32; B <= _VPU_MAX_B)
+# plain XLA path
 # ---------------------------------------------------------------------------
 
-def _vpu_e_kernel(x_ref, e_ref, qs_ref, s1_ref, s2_ref, o_ref, *,
-                  fmt: str, B: int):
-    """Any-K matvec: the per-block segment fold is ONE small MXU dot with a
-    constant block-selector matrix E [K(/2), Kb] (E[j,b] = 1 iff lane j
-    belongs to scale block b, i.e. j mod Kb == b). Dense 2-D tiles keep the
-    weight-stream DMA at full burst size; the MXU handles the reduction
-    Mosaic's vector unit cannot express for repeat-hostile Kb."""
-    e = e_ref[...]                                        # [K(/2), Kb] bf16
-    if fmt == "q8_0":
-        w = qs_ref[...].astype(jnp.float32)               # [bn, K]
-        s = s1_ref[...]                                   # [bn, Kb]
-        for b in range(B):
-            t = (w * x_ref[b:b + 1]).astype(jnp.bfloat16)
-            z = jax.lax.dot(t, e, preferred_element_type=jnp.float32)
-            o_ref[b, :] = jnp.sum(s * z, axis=1)
-        return
-
-    packed = qs_ref[...].astype(jnp.int32)                # [bn, K/2]
-    kh = packed.shape[1]
-    lo = (packed & 0xF).astype(jnp.float32)
-    hi = ((((packed >> 4) & 0xF) ^ 8)).astype(jnp.float32)
-    es = s1_ref[...].astype(jnp.float32)                  # [bn, Kb]
-    em = 8.0 * es if fmt == "q4_0" else s2_ref[...].astype(jnp.float32)
-    for b in range(B):
-        xl = x_ref[b:b + 1, :kh]                          # [1, K/2]
-        xh = x_ref[b:b + 1, kh:]
-        t = (lo * xl + hi * xh).astype(jnp.bfloat16)      # [bn, K/2]
-        z = jax.lax.dot(t, e, preferred_element_type=jnp.float32)
-        xs = jax.lax.dot((xl + xh).astype(jnp.bfloat16), e,
-                         preferred_element_type=jnp.float32)   # [1, Kb]
-        o_ref[b, :] = jnp.sum(es * z - em * xs, axis=1)
-
-
-@functools.cache
-def _selector_np(rows: int, kb: int, n_segs: int = 1):
-    """One-hot block selector E[j, b] = 1 iff device lane j belongs to scale
-    block b. Global interleave: b = j mod kb. Segment-local (n_segs > 1,
-    rows = K/2 or K): b = ((j mod (n_segs*2048)) // 2048)*128 + j mod 128
-    (see _perm; the j-mod wrap covers q8_0's full-K rows, whose two nibble
-    halves repeat the same block pattern)."""
-    j = np.arange(rows)
-    if n_segs > 1:
-        half = _SEG // 2
-        blk = ((j % (n_segs * half)) // half) * 128 + (j % 128)
-    else:
-        blk = j % kb
-    return (blk[:, None] == np.arange(kb)[None, :]).astype(ml_dtypes.bfloat16)
-
-
-# ---------------------------------------------------------------------------
-# chunk-fold VPU matvec kernel (q4_*, B == 1, K/32 % 128 == 0) — the fast
-# B=1 4-bit path: ~80% of HBM roofline vs ~47% for the repeat-based variant
-# ---------------------------------------------------------------------------
-
-def _chunk_kernel(*refs, fmt: str, n_chunks: int, n_segs: int = 1,
-                  s6: bool = False):
-    """Minimal-VPU-ops dequant matvec over the signed-friendly packing.
-
-    With p = int8 byte = lo + 16*hi - 128 (see _pack_halves), the true high
-    nibble is hi = floor(p/16 + 8) and lo = p + 128 - 16*hi, so
-
-        t_j = lo_j*xl_j + hi_j*xh_j
-            = p_j*xl_j + hi_j*(xh_j - 16*xl_j) + 128*xl_j
-
-    i.e. ONE int8->f32 cast + one fma/floor/mul/fma per byte (the 128*xl
-    term is per-block constant, folded into the correction row sc[0]).
-    Per-32-block partials are formed by summing the n_chunks lane-aligned
-    Kb-wide slices of t (lane j's block is j mod Kb, so 128-aligned chunk s
-    covers blocks in order) — the scale application then happens at [bn,Kb]
-    scale, 1/16th of the elements, instead of per element:
-
-        y_n = sum_b es[n,b]*(z[n,b] + sc0[b]) - em[n,b]*xs[b]
-
-    This is the same two-level associative reduction the reference's
-    split-KV decode uses ((O,M,S) partials then a merge,
-    /root/reference/src/flash_row_float.h:191-198,429-471) applied to the
-    dequant dot: partial per chunk, cheap merge at block granularity."""
-    if s6:
-        (a_ref, b_ref, sc_ref, edd_ref, eye_ref, qs_ref, sm_ref, dd_ref,
-         o_ref) = refs
-        s1_ref = s2_ref = None
-    else:
-        a_ref, b_ref, sc_ref, qs_ref, s1_ref, s2_ref, o_ref = refs
-    p = qs_ref[...]                                   # [bn, K/2] int8
-    pf = p.astype(jnp.float32)
-    hi = jnp.floor(pf * 0.0625 + 8.0)
-    t = pf * a_ref[...] + hi * b_ref[...]             # [bn, K/2]
-    kb = sm_ref.shape[1] // 2 if s6 else s1_ref.shape[1]
-    if n_segs > 1:
-        # segment-local layout: byte-lane j's block is (j//2048)*128 +
-        # j mod 128, so fold each segment's 2048 lanes onto its own 128
-        # scale columns, then lay the segments side by side (stored order)
-        span = t.shape[1] // n_segs                   # 2048
-        parts = []
-        for c in range(n_segs):
-            zc = t[:, c * span:c * span + 128]
-            for s in range(1, span // 128):
-                zc = zc + t[:, c * span + s * 128:c * span + (s + 1) * 128]
-            parts.append(zc)
-        z = jnp.concatenate(parts, axis=1)            # [bn, Kb]
-    else:
-        z = t[:, :kb]
-        for s in range(1, n_chunks):    # serial fold (tree measured slower)
-            z = z + t[:, s * kb:(s + 1) * kb]
-    if s6:
-        es, em = _decode_es_em_s6(sm_ref, dd_ref, edd_ref, eye_ref)
-    else:
-        es = s1_ref[...].astype(jnp.float32)
-        em = (8.0 * es if fmt == "q4_0"
-              else s2_ref[...].astype(jnp.float32))
-    y = es * (z + sc_ref[0:1]) - em * sc_ref[1:2]     # [bn, Kb]
-    o_ref[...] = jnp.sum(y, axis=1)[None, :]
-
-
-# ---------------------------------------------------------------------------
-# chunk-fold q6_k matvec kernel (B == 1, K/16 % 128 == 0)
-# ---------------------------------------------------------------------------
-
-def _chunk6_kernel(a_ref, b_ref, sc_ref, qs_ref, qh_ref, s1_ref, o_ref, *,
-                   n_chunks: int):
-    """q6_k = the q4 chunk kernel plus a 2-bit plane. Per lane pair
-    (i, i+K/2) with true nibbles lo/hi and 6-bit value q = nib + 16*h - 32:
-
-        q_i*xl_i + q_{i+K/2}*xh_i
-          = [p_i*xl_i + hi4_i*(xh_i - 16*xl_i)]            (4-bit part,
-            + 128*xl_i                                      signed-friendly)
-          + 16*(h_i*xl_i + h_{i+K/2}*xh_i)                 (2-bit part)
-          - 32*(xl_i + xh_i)
-
-    The 2-bit planes come 4-to-a-byte covering lanes (i, i+K/4, i+K/2,
-    i+3K/4), stored as TWO signed-friendly nibbles (h0+4h1 | (h2+4h3)^8,
-    see from_oracle) — so extraction is the same f32 floor chain as the
-    payload nibbles: one int8->f32 cast + ~8 VPU flops, no int32
-    widening relayout and no shifts (the old bitfield packing measured
-    the q6 head at 45% of its stream floor). The per-block constants
-    (128*xsl - 32*xs) fold into sc_ref[0] outside."""
-    p = qs_ref[...]                                   # [bn, K/2] int8
-    pf = p.astype(jnp.float32)
-    hi4 = jnp.floor(pf * 0.0625 + 8.0)
-    t = pf * a_ref[...] + hi4 * b_ref[...]            # [bn, K/2]
-
-    p2f = qh_ref[...].astype(jnp.float32)             # [bn, K/4]
-    u_hi = jnp.floor(p2f * 0.0625 + 8.0)              # h2 + 4*h3
-    u_lo = p2f + 128.0 - 16.0 * u_hi                  # h0 + 4*h1
-    h1 = jnp.floor(u_lo * 0.25)
-    h0 = u_lo - 4.0 * h1
-    h3 = jnp.floor(u_hi * 0.25)
-    h2 = u_hi - 4.0 * h3
-    kq = p2f.shape[1]
-    xl1 = a_ref[0:1, :kq]
-    xl2 = a_ref[0:1, kq:]
-    xh1 = b_ref[0:1, :kq] + 16.0 * xl1                # xh = b + 16a
-    xh2 = b_ref[0:1, kq:] + 16.0 * xl2
-    t2 = h0 * xl1 + h1 * xl2 + h2 * xh1 + h3 * xh2    # [bn, K/4]
-
-    kb = s1_ref.shape[1]
-    z = t[:, :kb]
-    for s in range(1, n_chunks):
-        z = z + t[:, s * kb:(s + 1) * kb]
-    z2 = t2[:, :kb]
-    for s in range(1, n_chunks // 2):
-        z2 = z2 + t2[:, s * kb:(s + 1) * kb]
-    es = s1_ref[...].astype(jnp.float32)
-    y = es * (z + 16.0 * z2 + sc_ref[0:1])            # [bn, kb]
-    o_ref[...] = jnp.sum(y, axis=1)[None, :]
-
-
-def _qmatmul_chunk6(xp, ql, N, K, kb, block_n, out_dtype, interpret):
-    """Dispatch for the q6_k chunk-fold matvec (see _chunk6_kernel).
-    xp is in the q6 (16-block) lane order."""
-    kh = K // 2
-    if block_n is None:
-        cap = max(128, (8_388_608 // K) // 128 * 128)
-        bn = _bn_no_pad(N, cap) or cap        # zero-pad tiling first
-    else:
-        bn = block_n
-    bn = min(bn, N)
-    Np = -(-N // bn) * bn
-
-    def pad_rows(a):
-        return (jnp.pad(a, ((0, Np - a.shape[0]), (0, 0)))
-                if a.shape[0] != Np else a)
-
-    arrays = [pad_rows(getattr(ql, f)) for f in _FIELDS["q6_k"]]
-    xl, xh = xp[0, :kh], xp[0, kh:]
-    a = xl[None, :]
-    bvec = (xh - 16.0 * xl)[None, :]
-    c = (128.0 * xl.reshape(-1, kb).sum(0)
-         - 32.0 * (xl + xh).reshape(-1, kb).sum(0))
-    sc = c[None, :]                                    # [1, kb]
-    out = pl.pallas_call(
-        functools.partial(_chunk6_kernel, n_chunks=kh // kb),
-        out_shape=jax.ShapeDtypeStruct((1, Np), jnp.float32),
-        grid=(Np // bn,),
-        in_specs=[
-            pl.BlockSpec((1, kh), lambda n: (0, 0)),
-            pl.BlockSpec((1, kh), lambda n: (0, 0)),
-            pl.BlockSpec((1, kb), lambda n: (0, 0)),
-            pl.BlockSpec((bn, kh), lambda n: (n, 0)),
-            pl.BlockSpec((bn, K // 4), lambda n: (n, 0)),
-            pl.BlockSpec((bn, kb), lambda n: (n, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, bn), lambda n: (0, n)),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",)),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * N * K,
-            bytes_accessed=sum(a_.size * a_.dtype.itemsize
-                               for a_ in arrays) + K * 4 + Np * 4,
-            transcendentals=0),
-        interpret=interpret_default(interpret),
-    )(a, bvec, sc, *arrays)
-    return out[:, :N].astype(out_dtype)
-
-
-# ---------------------------------------------------------------------------
-# hybrid q6_k matvec (B == 1, segment-local layout, K % 4096 == 0): the
-# 4-bit nibble planes run as int8 selector dots on the MXU (the q4 chunk8
-# idiom at q6's 16-element scale granularity), the 2-bit planes keep the
-# exact f32 floor-chain fold on the VPU. Measured rationale
-# (tools/q6_probe.py, PERF.md "q6_k head"): all-VPU 46.8% of roofline,
-# segment-local nibble dots 63.0% alone, 2-bit chain 75.5% alone — the
-# MXU/VPU split overlaps where the all-VPU kernel serializes.
-# ---------------------------------------------------------------------------
-
-def _chunk6h_kernel(ea_ref, eb_ref, xq_ref, sc_ref, qs_ref, qh_ref,
-                    s1_ref, o_ref, *, n_segs: int,
-                    splits: tuple[int, ...]):
-    """Per lane pair (i, i+K/2) with q = nib + 16*h - 32: the nibble part
-    uses the q4 chunk8 identity (lo = p & 0xF; p = lo + 16*hi4 - 128):
-        lo*xl + hi4*xh = lo*(xl - xh/16) + p*(xh/16) + 8*xh
-    — TWO int8 MXU dots per 1024-byte segment against the SAME
-    coefficient ranges as the proven q4 x_quant8 path (quantizing
-    xh - 16*xl instead measured 2.3%% error: 16x coarser int8 steps),
-    with the per-block constant c = 8*sum(xh) - 32*sum(x) folded in sc.
-    The 2-bit planes (qh byte i2 -> lanes i2, i2+K/4, i2+K/2, i2+3K/4)
-    stay exact f32: under the segment-local layout the (h0, h2) terms
-    belong to byte-lane i2's block and the (h1, h3) terms to byte-lane
-    (i2 + K/4)'s block — two fold streams whose block columns are the
-    first and second halves of the segment range."""
-    kh = qs_ref.shape[1]
-    csz = kh // n_segs                                # 1024 bytes/segment
-    kq = qh_ref.shape[1]                              # kh // 2
-    sa, sb, cc = sc_ref[0:1, :], sc_ref[1:2, :], sc_ref[2:3, :]
-    nsh = n_segs // 2
-    r0 = 0
-    for rows in splits:
-        p = qs_ref[r0:r0 + rows, :]                   # [rows, KH] int8
-        lo = p & 0x0F
-        # VPU 2-bit chain first in program order: the hybrid's first
-        # measurement showed the dots and this chain NOT overlapping
-        # (their costs added exactly) — issue the independent VPU work
-        # before the MXU dots so the scheduler can interleave
-        u = qh_ref[r0:r0 + rows, :].astype(jnp.float32)   # [rows, kq]
-        u_hi = jnp.floor(u * 0.0625 + 8.0)                # h2 + 4*h3
-        u_lo = u + 128.0 - 16.0 * u_hi                    # h0 + 4*h1
-        h1 = jnp.floor(u_lo * 0.25)
-        h0 = u_lo - 4.0 * h1
-        h3 = jnp.floor(u_hi * 0.25)
-        h2 = u_hi - 4.0 * h3
-        t2a = h0 * xq_ref[0:1, :] + h2 * xq_ref[2:3, :]   # -> blk(i2)
-        t2b = h1 * xq_ref[1:2, :] + h3 * xq_ref[3:4, :]   # -> blk(i2+kq)
-
-        z1s, z2s = [], []
-        for s in range(n_segs):
-            sl = slice(s * csz, (s + 1) * csz)
-            z1s.append(jax.lax.dot_general(
-                lo[:, sl], ea_ref[sl, :], (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.int32))    # [rows, 128]
-            z2s.append(jax.lax.dot_general(
-                p[:, sl], eb_ref[sl, :], (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.int32))
-        z1 = jnp.concatenate(z1s, axis=1).astype(jnp.float32)
-        z2 = jnp.concatenate(z2s, axis=1).astype(jnp.float32)
-
-        def fold2(t):                  # [rows, kq] -> [rows, nsh*128]
-            parts = []
-            for s in range(nsh):
-                acc = t[:, s * csz:s * csz + 128]
-                for c in range(1, csz // 128):
-                    acc = acc + t[:, s * csz + c * 128:
-                                  s * csz + (c + 1) * 128]
-                parts.append(acc)
-            return parts[0] if nsh == 1 else jnp.concatenate(parts, 1)
-
-        zbit = jnp.concatenate([fold2(t2a), fold2(t2b)], axis=1)
-        es = s1_ref[r0:r0 + rows, :].astype(jnp.float32)  # [rows, kb6]
-        y = es * (sa * z1 + sb * z2 + cc + 16.0 * zbit)
-        o_ref[0:1, r0:r0 + rows] = jnp.sum(y, axis=1)[None, :]
-        r0 += rows
-
-
-def _qmatmul_chunk6h(xp, ql, N, K, kb6, block_n, out_dtype, interpret):
-    """Dispatch for the hybrid q6_k matvec (segment-local layout).
-    xp [1, K] f32 in the q6 device lane order."""
-    kh = K // 2
-    n_segs = kh // 1024
-    if block_n is None:
-        cap = max(128, (8_388_608 // K) // 128 * 128)
-        bn = _bn_no_pad(N, cap) or cap
-    else:
-        bn = block_n
-    bn = min(bn, N)
-    Np = -(-N // bn) * bn
-
-    def pad_rows(a):
-        return (jnp.pad(a, ((0, Np - a.shape[0]), (0, 0)))
-                if a.shape[0] != Np else a)
-
-    arrays = [pad_rows(getattr(ql, f)) for f in _FIELDS["q6_k"]]
-    xl, xh = xp[0, :kh], xp[0, kh:]
-    a = xl - xh / 16.0
-    bv = xh / 16.0
-    aq, sa = _quant_rows_blockwise(a, kb6, n_segs)
-    bq, sb = _quant_rows_blockwise(bv, kb6, n_segs)
-    sel = np.tile(_selector_np(1024, 128).astype(np.int8), (n_segs, 1))
-    sel = jnp.asarray(sel)                            # [KH, 128] int8
-    ea = (aq[:, None] * sel)
-    eb = (bq[:, None] * sel)
-    cc = (8.0 * _block_sums(xh, kb6, n_segs)
-          - 32.0 * _block_sums(xl + xh, kb6, n_segs))
-    sc = jnp.stack([sa, sb, cc, jnp.zeros_like(cc)])  # [4, kb6] f32
-    kq = kh // 2
-    xq = jnp.stack([xl[:kq], xl[kq:], xh[:kq], xh[kq:]])   # [4, kq] f32
-    splits = _row_splits(bn)
-    out = pl.pallas_call(
-        functools.partial(_chunk6h_kernel, n_segs=n_segs, splits=splits),
-        out_shape=jax.ShapeDtypeStruct((1, Np), jnp.float32),
-        grid=(Np // bn,),
-        in_specs=[
-            pl.BlockSpec((kh, 128), lambda n: (0, 0)),      # ea
-            pl.BlockSpec((kh, 128), lambda n: (0, 0)),      # eb
-            pl.BlockSpec((4, kq), lambda n: (0, 0)),        # xq
-            pl.BlockSpec((4, kb6), lambda n: (0, 0)),       # sc
-            pl.BlockSpec((bn, kh), lambda n: (n, 0)),       # qs
-            pl.BlockSpec((bn, kq), lambda n: (n, 0)),       # qh
-            pl.BlockSpec((bn, kb6), lambda n: (n, 0)),      # es
-        ],
-        out_specs=pl.BlockSpec((1, bn), lambda n: (0, n)),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            vmem_limit_bytes=100 * 2**20),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * N * K + N * K * 64,
-            bytes_accessed=sum(a_.size * a_.dtype.itemsize
-                               for a_ in arrays) + K * 4 + Np * 4,
-            transcendentals=0),
-        interpret=interpret_default(interpret),
-    )(ea, eb, xq, sc, *arrays)
-    return out[:, :N].astype(out_dtype)
-
-
-# ---------------------------------------------------------------------------
-# 2-D MXU kernel (requires pltpu.repeat-aligned K/32)
-# ---------------------------------------------------------------------------
-
-def _mosaic_rep(v, times):
-    return pltpu.repeat(v, times, axis=1)
-
-
-def _xla_rep(v, times):
-    return jnp.tile(v, (1, times))
-
-
-def _dequant_halves(fmt: str, refs, rep, n_segs: int = 1):
-    """(w_lo, w_hi) [*, K/2] f32 dequantized halves (q4_*), or (w, None)
-    for q8_0. Used by the MXU kernel (rep = pltpu.repeat) and the XLA
-    baseline (rep = jnp.tile). For the segment-local layout (n_segs > 1,
-    see _perm) the scale expansion repeats each segment's 128 scale columns
-    over its 2048 half-lanes; q8_0's full-K rows duplicate that pattern for
-    the two nibble halves."""
-    if n_segs > 1:
-        base_rep = rep
-
-        def rep(v, times):                   # noqa: F811 — seg-aware shadow
-            local = (_SEG // 2) // 128       # 16 half-lanes per scale column
-            half = jnp.concatenate(
-                [base_rep(v[:, c * 128:(c + 1) * 128], local)
-                 for c in range(n_segs)], axis=1)
-            if times == QK:                  # q8_0: full-K expansion
-                return jnp.concatenate([half, half], axis=1)
-            return half
-
-    if fmt == "q8_0":
-        qs = refs["qs"][...]
-        return qs.astype(jnp.float32) * rep(refs["d"][...], QK), None
-    # int8 signed-friendly packing (see _pack_halves): p = lo + 16*hi - 128
-    packed = refs["qs"][...].astype(jnp.int32)        # [*, K/2]
-    lo = (packed & 0xF).astype(jnp.float32)
-    hi = (((packed >> 4) & 0xF) ^ 8).astype(jnp.float32)
-    if fmt == "q4_0":
-        s_half = rep(refs["d"][...], QK // 2)
-        return (lo - 8.0) * s_half, (hi - 8.0) * s_half
-    if "edd" in refs:                        # q4_k s6 streaming encoding
-        es_kb, em_kb = _decode_es_em_s6(
-            refs["es"], refs["d"], refs["edd"], refs["eye"])
-        es = rep(es_kb, QK // 2)
-        em = rep(em_kb, QK // 2)
-    else:
-        es = rep(refs["es"][...].astype(jnp.float32), QK // 2)
-        em = rep(refs["em"][...].astype(jnp.float32), QK // 2)
-    return lo * es - em, hi * es - em
-
-
-def _unpack_w_refs(refs, fmt: str, s6: bool):
-    """(x_ref, w_refs dict incl. optional edd/eye, next_index) for the
-    kernels whose operand list is [x, *weight_fields, edd?, eye?,
-    out, ...]."""
-    names = _FIELDS_S6 if s6 else _FIELDS[fmt]
-    w_refs = dict(zip(names, refs[1:1 + len(names)]))
-    idx = 1 + len(names)
-    if s6:
-        w_refs["edd"] = refs[idx]
-        w_refs["eye"] = refs[idx + 1]
-        idx += 2
-    return refs[0], w_refs, idx
-
-
-def _vpu2_kernel(*refs, fmt: str, n_segs: int = 1, s6: bool = False):
-    """B=1 full-width VPU matvec using the repeat-based dequant (fastest
-    measured variant at repeat-aligned K: ~56% roofline for q4_k)."""
-    x_ref, w_refs, idx = _unpack_w_refs(refs, fmt, s6)
-    o_ref = refs[idx]
-
-    w_lo, w_hi = _dequant_halves(fmt, w_refs, _mosaic_rep, n_segs)
-    x = x_ref[...]                                       # [1, K] f32
-    if w_hi is None:
-        acc = jnp.sum(w_lo * x, axis=1)                  # [bn]
-    else:
-        kh = w_lo.shape[1]
-        acc = jnp.sum(w_lo * x[:, :kh] + w_hi * x[:, kh:], axis=1)
-    o_ref[...] = acc[None, :].astype(o_ref.dtype)
-
-
-# Measurement-only phase gate for _pipe_kernel (tools/pipe_probe.py):
-# "both" (production), "dequant" (skip the MXU dot — prices DMA + VPU
-# dequant), "dot" (skip the dequant — prices DMA + MXU dot on stale
-# scratch). Isolates which unit bounds the prefill GEMM.
-PIPE_PHASE = "both"
-
-# Prefill GEMM structure: "sub" (default) dequantizes and dots per ~512-row
-# SUB-TILE in pure SSA form — no scratch ref, so Mosaic's scheduler can
-# overlap sub j+1's VPU dequant with sub j's MXU dot (the same trick that
-# took the chunk8 matvec from 71 to 97%). "slots" is the round-3 design
-# (whole-tile dequant into a 2-slot scratch, dot from the other slot),
-# measured SERIALIZED on v5e: the dot reads wbuf[1-slot] while the dequant
-# writes wbuf[slot] of the SAME ref with a dynamic slot index, and Mosaic
-# cannot prove disjointness, so it orders them — tools/pipe_probe.py reads
-# both ~= dot + dequant (801 us vs dot-only 553 at [24576, 4096] T=512).
-PIPE_MODE = "sub"
-PIPE_SUB_ROWS = 512
-
-
-class _RowSlice:
-    """Adapt a rows-sliced ref/array to the ``ref[...]`` protocol of
-    _dequant_halves."""
-
-    def __init__(self, ref, r0, rows):
-        self.ref, self.r0, self.rows = ref, r0, rows
-
-    @property
-    def shape(self):
-        return (self.rows,) + tuple(self.ref.shape[1:])
-
-    def __getitem__(self, _):
-        return self.ref[self.r0:self.r0 + self.rows, :]
-
-
-def _pipe_sub_kernel(*refs, fmt: str, n_segs: int = 1, s6: bool = False,
-                     splits: tuple[int, ...] = ()):
-    """Per-sub-tile dequant (VPU) + dot (MXU) with SSA temporaries only —
-    see PIPE_MODE. Grid (n_tiles,), no epilogue step, no scratch."""
-    x_ref, w_refs, idx = _unpack_w_refs(refs, fmt, s6)
-    o_ref = refs[idx]
-    x = x_ref[...].astype(jnp.bfloat16)              # [B, K]
-    r0 = 0
-    for rows in splits:
-        sub = {k: _RowSlice(v, r0, rows) for k, v in w_refs.items()
-               if k not in ("edd", "eye")}
-        if s6:
-            sub["edd"], sub["eye"] = w_refs["edd"], w_refs["eye"]
-        w_lo, w_hi = _dequant_halves(fmt, sub, _mosaic_rep, n_segs)
-        dims = (((1,), (1,)), ((), ()))
-        if w_hi is None:
-            acc = jax.lax.dot_general(
-                x, w_lo.astype(jnp.bfloat16), dims,
-                preferred_element_type=jnp.float32)
-        else:
-            kh = w_lo.shape[1]
-            acc = jax.lax.dot_general(
-                x[:, :kh], w_lo.astype(jnp.bfloat16), dims,
-                preferred_element_type=jnp.float32)
-            acc = acc + jax.lax.dot_general(
-                x[:, kh:], w_hi.astype(jnp.bfloat16), dims,
-                preferred_element_type=jnp.float32)
-        o_ref[:, r0:r0 + rows] = acc.astype(o_ref.dtype)
-        r0 += rows
-
-
-def _pipe_kernel(*refs, fmt: str, n_tiles: int, n_segs: int = 1,
-                 s6: bool = False, phase: str = "both"):
-    """Software-pipelined matvec: the VPU dequantizes tile i into a VMEM
-    scratch slot while the MXU multiplies tile i-1 from the other slot —
-    the two units have no data dependency inside a grid step, so Mosaic can
-    overlap them and the kernel runs at max(DMA, dequant, dot) instead of
-    their sum. Grid has one epilogue step (n_tiles + 1); output tile i-1 is
-    stored at step i."""
-    x_ref, w_refs, idx = _unpack_w_refs(refs, fmt, s6)
-    o_ref = refs[idx]
-    wbuf = refs[idx + 1]                        # [2, bn, K] bf16 scratch
-    i = pl.program_id(0)
-    slot = jax.lax.rem(i, 2)
-
-    if phase != "dot":
-        @pl.when(i < n_tiles)
-        def _dequant():
-            w_lo, w_hi = _dequant_halves(fmt, w_refs, _mosaic_rep, n_segs)
-            if w_hi is None:
-                wbuf[slot] = w_lo.astype(jnp.bfloat16)
-            else:
-                kh = w_lo.shape[1]
-                wbuf[slot, :, :kh] = w_lo.astype(jnp.bfloat16)
-                wbuf[slot, :, kh:] = w_hi.astype(jnp.bfloat16)
-
-    if phase != "dequant":
-        @pl.when(i > 0)
-        def _dot():
-            x = x_ref[...].astype(jnp.bfloat16)     # [B, K]
-            o_ref[...] = jax.lax.dot_general(
-                x, wbuf[1 - slot],
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32).astype(o_ref.dtype)
-    else:
-        @pl.when(i > 0)
-        def _touch():                           # keep o_ref written (opaque
-            o_ref[...] = jnp.zeros_like(o_ref)  # call: no XLA DCE inside)
-
-
-def _mxu_kernel(*refs, fmt: str, compute_dtype, n_segs: int = 1,
-                s6: bool = False):
-    """Grid (n,): out = x_perm @ dequant(W_tile)^T — 1-2 MXU dots."""
-    x_ref, w_refs, idx = _unpack_w_refs(refs, fmt, s6)
-    o_ref = refs[idx]
-
-    w_lo, w_hi = _dequant_halves(fmt, w_refs, _mosaic_rep, n_segs)
-    x = x_ref[...].astype(compute_dtype)                     # [B, K]
-    dims = (((1,), (1,)), ((), ()))
-    # full f32 MXU passes when compute is f32 (default would silently round
-    # operands to bf16); the extra passes hide under the weight-stream DMA
-    prec = (jax.lax.Precision.HIGHEST if compute_dtype == jnp.float32
-            else jax.lax.Precision.DEFAULT)
-    if w_hi is None:
-        acc = jax.lax.dot_general(
-            x, w_lo.astype(compute_dtype), dims,
-            preferred_element_type=jnp.float32, precision=prec)
-    else:
-        kh = w_lo.shape[1]
-        acc = jax.lax.dot_general(
-            x[:, :kh], w_lo.astype(compute_dtype), dims,
-            preferred_element_type=jnp.float32, precision=prec)
-        acc += jax.lax.dot_general(
-            x[:, kh:], w_hi.astype(compute_dtype), dims,
-            preferred_element_type=jnp.float32, precision=prec)
-    o_ref[...] = acc.astype(o_ref.dtype)
-
-
-# ---------------------------------------------------------------------------
-# dispatch
-# ---------------------------------------------------------------------------
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("block_n", "compute_dtype", "out_dtype", "use_vpu",
-                     "pipelined", "x_quant8", "x_prepermuted", "interpret"),
-)
-def qmatmul(
-    x: jax.Array,
-    ql: QuantLinear,
-    *,
-    block_n: int | None = None,
-    compute_dtype=jnp.bfloat16,
-    out_dtype=None,
-    use_vpu: bool | None = None,
-    pipelined: bool = False,
-    x_quant8: bool = False,
-    x_prepermuted: bool = False,
-    interpret: bool | None = None,
-) -> jax.Array:
-    """y[B, N] = x[B, K] @ dequant(W[N, K])^T, dequant fused in-kernel.
-
-    The memory-bound decode path: weights stream HBM→VMEM once, activations
-    stay resident. x is in *logical* order (permutation handled here).
-    Paths (measured on v5e):
-      - VPU 3-D matvec (B <= 8): a matvec uses B of 128 MXU sublanes, so
-        decode runs on the VPU's full width instead (~56% roofline q4_k,
-        any K).
-      - MXU (B >= ~8, K/32 repeat-aligned): ~93% roofline for q8_0.
-      - XLA dequant+matmul fallback elsewhere (use qmatmul_xla for large-B
-        prefill regardless — it is MXU-bound there).
-    """
-    N, K = ql.array_shape
-    B = x.shape[0]
-    assert x.shape[1] == K, f"x K={x.shape[1]} vs weight K={K}"
-    if out_dtype is None:
-        out_dtype = x.dtype
-    if ql.fmt == "q6_k":
-        if x_prepermuted:
-            # cfg.hperm supplies x in the q4-class std interleave; q6_k
-            # uses a different lane order (_perm_q6), so restore logical
-            # order first — feeding the hperm order straight into
-            # permute_activations_q6 produces garbage (round-4 advisor).
-            x = jnp.take(x, jnp.asarray(_inv_perm(K)), axis=-1)
-        kb6 = K // 16
-        if B == 1 and _q6_seg(K):
-            xp6 = permute_activations_q6(x.astype(jnp.float32))
-            return _qmatmul_chunk6h(xp6, ql, N, K, kb6, block_n,
-                                    out_dtype, interpret)
-        if B == 1 and kb6 % 128 == 0:
-            xp6 = permute_activations_q6(x.astype(jnp.float32))
-            return _qmatmul_chunk6(xp6, ql, N, K, kb6, block_n, out_dtype,
-                                   interpret)
-        return qmatmul_xla(x, ql, compute_dtype=jnp.float32
-                           if compute_dtype == jnp.float32 else jnp.bfloat16)
-    kb = K // QK
-    if use_vpu is None:
-        # VPU matvec by default only at B == 1: the B-looped variant
-        # compiles pathologically slowly on Mosaic (unrolled per-b bodies)
-        # and the MXU amortizes better from B >= 2 anyway. q8_0 stays on
-        # the MXU whenever the repeat-based dequant exists.
-        use_vpu = B == 1 and not (ql.fmt == "q8_0" and _rep_aligned(kb))
-    if use_vpu and B > _VPU_MAX_B:
-        use_vpu = False
-    if not use_vpu and not _rep_aligned(kb):
-        # no MXU variant for this K; XLA fallback keeps correctness
-        if x_prepermuted:
-            x = jnp.take(x, jnp.asarray(_inv_perm_layout(K, ql.layout)),
-                         axis=-1)
-        return qmatmul_xla(x, ql, compute_dtype=jnp.float32
-                           if compute_dtype == jnp.float32 else jnp.bfloat16)
-
-    s6 = ql.fmt == "q4_k" and ql.enc == "s6"
-    if s6 and use_vpu and not (B == 1 and _rep_aligned(kb)):
-        # the B 2-8 VPU-looped kernel has no in-kernel s6 decode; expand
-        # the scales once in XLA (rare path — decode is B==1, batch >= 2
-        # runs the MXU kernel which decodes s6 natively)
-        ql = scales_to_e(ql)
-        s6 = False
-
-    # ``x_prepermuted``: caller already supplies x in the interleaved
-    # column order (e.g. the fused-MLP intermediate, whose producer's row
-    # order was chosen to match) — skip the permute. That order is the
-    # std interleave; a "wof"-layout weight would need a different one.
-    assert not (x_prepermuted and ql.layout != "std"), \
-        f"x_prepermuted expects std layout, got {ql.layout!r}"
-    xp = (x.astype(jnp.float32) if x_prepermuted
-          else _permute_x(x.astype(jnp.float32), ql.layout))
-    fields = _fields(ql)
-
-    if pipelined and _rep_aligned(kb):
-        if B > 8:
-            # prefill-sized GEMM: the resident activation block must be
-            # slim (B=512 f32 x would eat 8 MB of VMEM; the dot is bf16
-            # anyway)
-            xp = xp.astype(jnp.bfloat16)
-            # resident x (2*B*K) + the [2, bn, K] bf16 dequant scratch must
-            # fit the raised scoped-VMEM cap even at bn=128; XLA's
-            # dequant+matmul takes over beyond that (e.g. multi-thousand-
-            # token prefill chunks)
-            if 2 * B * K + 9 * 128 * K > 60_000_000:
-                if x_prepermuted:
-                    x = jnp.take(
-                        x, jnp.asarray(_inv_perm_layout(K, ql.layout)),
-                        axis=-1)
-                return qmatmul_xla(x, ql, compute_dtype=jnp.bfloat16)
-        return _qmatmul_pipelined(xp, ql, B, N, K, kb, block_n, out_dtype,
-                                  interpret)
-
-    if use_vpu and B == 1 and ql.fmt != "q8_0" and kb % 128 == 0:
-        if x_quant8:
-            return _qmatmul_chunk8(xp, ql, N, K, kb, block_n, out_dtype,
-                                   interpret)
-        return _qmatmul_chunk(xp, ql, N, K, kb, block_n, out_dtype,
-                              interpret)
-
-    if block_n is None:
-        # measured optima on v5e (1024 vpu / 512 mxu at K=4096), scaled down
-        # for larger K so tile + f32 dequant temporaries fit VMEM (~16MB)
-        budget_elems = 4_000_000 if use_vpu else 2_000_000
-        bn_auto = max(128, (budget_elems // K) // 128 * 128)
-        block_n = min(1024 if use_vpu else 512, bn_auto)
-        if N > block_n:
-            # zero-pad tiling (see chunk8_plan): an N % bn != 0 dispatch
-            # jnp.pads the whole weight INSIDE the jit, which a decode
-            # scan re-executes every step
-            block_n = _bn_no_pad(N, block_n, min_bn=512) or block_n
-    bn = min(block_n, N)
-    Np = -(-N // bn) * bn
-
-    def pad_rows(a):
-        # N is dim 0 for 2-D arrays, dim 1 for the 'sub' payload layout
-        axis = 1 if a.ndim == 3 else 0
-        if a.shape[axis] == Np:
-            return a
-        pads = [(0, 0)] * a.ndim
-        pads[axis] = (0, Np - a.shape[axis])
-        return jnp.pad(a, pads)
-
-    arrays = [pad_rows(getattr(ql, f)) for f in fields]
-
-    if use_vpu:
-        cost = pl.CostEstimate(
-            flops=2 * B * Np * K,
-            bytes_accessed=sum(a.size * a.dtype.itemsize
-                               for a in arrays) + B * K * 4 + B * Np * 4,
-            transcendentals=0)
-        if B == 1 and _rep_aligned(kb):
-            # fast full-width variant (repeat-based scale expansion)
-            in_specs = [pl.BlockSpec((1, K), lambda n: (0, 0))] + [
-                pl.BlockSpec((bn, K // _lane_div(ql.fmt, f, s6)),
-                             lambda n: (n, 0)) for f in fields]
-            operands = [xp, *arrays]
-            if s6:
-                edd = jnp.asarray(_dd_expand_np(K, ql.layout))
-                eye = jnp.asarray(_eye_operand(2 * kb))
-                in_specs += [pl.BlockSpec(edd.shape, lambda n: (0, 0)),
-                             pl.BlockSpec(eye.shape, lambda n: (0, 0))]
-                operands += [edd, eye]
-            out = pl.pallas_call(
-                functools.partial(_vpu2_kernel, fmt=ql.fmt,
-                                  n_segs=_n_segs(K), s6=s6),
-                out_shape=jax.ShapeDtypeStruct((1, Np), out_dtype),
-                grid=(Np // bn,),
-                in_specs=in_specs,
-                out_specs=pl.BlockSpec((1, bn), lambda n: (0, n)),
-                compiler_params=pltpu.CompilerParams(
-                    dimension_semantics=("arbitrary",)),
-                cost_estimate=cost,
-                interpret=interpret_default(interpret),
-            )(*operands)
-            return out[:, :N]
-        # any-K path: segment fold via the constant selector matmul
-        rows = K if ql.fmt == "q8_0" else K // 2
-        e = jnp.asarray(_selector_np(rows, kb, _n_segs(K)))
-        s1 = arrays[1]
-        s2 = arrays[2] if len(arrays) > 2 else s1   # dummy for q4_0/q8_0
-        qs_div = 1 if ql.fmt == "q8_0" else 2
-        out = pl.pallas_call(
-            functools.partial(_vpu_e_kernel, fmt=ql.fmt, B=B),
-            out_shape=jax.ShapeDtypeStruct((B, Np), jnp.float32),
-            grid=(Np // bn,),
-            in_specs=[
-                pl.BlockSpec((B, K), lambda n: (0, 0)),
-                pl.BlockSpec((rows, kb), lambda n: (0, 0)),
-                pl.BlockSpec((bn, K // qs_div), lambda n: (n, 0)),
-                pl.BlockSpec((bn, kb), lambda n: (n, 0)),
-                pl.BlockSpec((bn, kb), lambda n: (n, 0)),
-            ],
-            out_specs=pl.BlockSpec((B, bn), lambda n: (0, n)),
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("arbitrary",)),
-            cost_estimate=cost,
-            interpret=interpret_default(interpret),
-        )(xp, e, arrays[0], s1, s2)
-        return out[:, :N].astype(out_dtype)
-
-    Bp = max(8, -(-B // 8) * 8)
-    if Bp != B:
-        xp = jnp.pad(xp, ((0, Bp - B), (0, 0)))
-    in_specs = [pl.BlockSpec((Bp, K), lambda n: (0, 0))]
-    for f in fields:
-        div = _lane_div(ql.fmt, f, s6)
-        in_specs.append(pl.BlockSpec((bn, K // div), lambda n: (n, 0)))
-    operands = [xp, *arrays]
-    if s6:
-        edd = jnp.asarray(_dd_expand_np(K, ql.layout))
-        eye = jnp.asarray(_eye_operand(2 * kb))
-        in_specs += [pl.BlockSpec(edd.shape, lambda n: (0, 0)),
-                     pl.BlockSpec(eye.shape, lambda n: (0, 0))]
-        operands += [edd, eye]
-
-    out = pl.pallas_call(
-        functools.partial(_mxu_kernel, fmt=ql.fmt,
-                          compute_dtype=compute_dtype, n_segs=_n_segs(K),
-                          s6=s6),
-        out_shape=jax.ShapeDtypeStruct((Bp, Np), out_dtype),
-        grid=(Np // bn,),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((Bp, bn), lambda n: (0, n)),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",)),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * Bp * Np * K,
-            bytes_accessed=sum(a.size * a.dtype.itemsize for a in arrays)
-            + Bp * K * 4 + Bp * Np * 4,
-            transcendentals=0),
-        interpret=interpret_default(interpret),
-    )(*operands)
-    return out[:B, :N]
-
-
-def _bn_no_pad(N: int, cap: int, min_bn: int = 1024) -> int:
-    """Largest 128-multiple row tile <= cap with N % bn == 0 (so the
-    dispatch never jnp.pads the weight — see chunk8_plan's zero-pad note),
-    or 0 when divisors would force tiles below ``min_bn``.
-
-    Falls back through smaller min_bn tiers (512, 256) before giving up:
-    extra per-grid-step fixed cost (~0.7 us/step) is far cheaper than the
-    padded dispatch's whole-weight jnp.pad copy on every call (e.g. the
-    llama3-8b lm_head [128256, 4096]: no >=1024 divisor tile exists, and
-    the minimal-pad plan would re-copy 246 MB per decode step; bn=768 at
-    167 steps costs ~0.1 ms of step overhead instead)."""
-    if N % 128 != 0:
-        return 0
-    units = N // 128
-    for floor_bn in (min_bn, 512, 256):
-        if floor_bn > min_bn:
-            continue
-        for k in range(cap // 128, max(floor_bn // 128, 1) - 1, -1):
-            if units % k == 0:
-                return 128 * k
-    return 0
-
-
-def _row_splits(bn: int, target: int = 1024) -> tuple[int, ...]:
-    """Split a row tile into ~target-row subtiles (multiples of 128)."""
-    if bn <= target:
-        return (bn,)
-    ns = max(1, round(bn / target))
-    base = bn // ns // 128 * 128
-    sizes = [base] * ns
-    for i in range((bn - base * ns) // 128):
-        sizes[i] += 128
-    assert sum(sizes) == bn, (bn, sizes)
-    return tuple(sizes)
-
-
-# Measurement-only knobs (tools/roofline_sweep.py): append N extra ignored
-# operand windows to the chunk8 dispatch to price Pallas' per-grid-step
-# window bookkeeping — "const" windows have a (0,0) index map (prologue
-# fetch only), "tiled" windows stream one [bn, 128] int8 tile per step
-# (known DMA bytes, so the bookkeeping residue is measured - expected-DMA).
-CHUNK8_EXTRA_CONST_WINDOWS = 0
-CHUNK8_EXTRA_TILED_WINDOWS = 0
-# "stream": skip the unpack/dot/fold entirely and just touch each streamed
-# window — prices the achievable DMA bandwidth for this exact operand
-# pattern (the honest ceiling the kernel's % should be judged against).
-CHUNK8_STREAM_ONLY = False
-
-
-def _chunk8_kernel(*refs, fmt: str, n_segs: int = 1,
-                   splits: tuple[int, ...] | None = None,
-                   s6: bool = False, n_extra: int = 0):
-    if n_extra:
-        # extra probe windows sit between the real operands and o_ref
-        refs = refs[:-(n_extra + 1)] + (refs[-1],)
-    """Integer-dot B=1 q4 matvec (llama.cpp Q4_K x Q8 analog,
-    ggml vec_dot_q4_K_q8_K re-asked for the MXU).
-
-    The activation vectors a = xl - xh/16 and b = xh/16 (see _chunk_kernel)
-    are quantized per-32-block to int8 OUTSIDE the kernel and folded into
-    block-selector matrices E_a[j, beta] = aq_j * [j mod Kb == beta], so the
-    per-block partial dot
-
-        Z[n, beta] = sum_{j in beta} q_nj * aq_j
-
-    is ONE int8 x int8 -> int32 MXU matmul straight off the streamed bytes:
-    Z_p = p @ E_b needs no unpacking at all, Z_lo = (p & 15) @ E_a needs a
-    single int8 AND per byte — the entire per-element dequant runs on the
-    MXU at its 2x int8 rate, and the VPU touches only [bn, Kb]-scale data.
-
-    With the segment-local layout (n_segs > 1, see _perm) the selector is
-    [KH, 128] and each 2048-byte segment contracts against its own slice —
-    selector compute stays linear in K (N*K*64 MACs, ~0.47x the weight-DMA
-    time on the MXU) instead of the global layout's N*K*Kb/2.
-
-    ``splits`` (row-subtile sizes summing to bn): the AND + the two dots
-    run per ~1024-row subtile, so subtile i+1's nibble unpack (VPU) can
-    overlap subtile i's selector dots (MXU) and the ``lo`` temporary stays
-    small — with 4096-row tiles this measured 97% of the HBM roofline vs
-    70-76% for the monolithic body (tools/exp_q4_r2.py: sub4 vs full),
-    because per-grid-step fixed cost amortizes over 4x more DMA while the
-    unpack/dot chain still pipelines. The round-1 bn=2048 regression was
-    Mosaic's default ~16 MB scoped-VMEM limit: raised via
-    compiler_params (see _qmatmul_chunk8)."""
-    if s6:
-        (ea_ref, eb_ref, sc_ref, edd_ref, eye_ref, qs_ref, sm_ref, dd_ref,
-         o_ref) = refs
-        es, em = _decode_es_em_s6(sm_ref, dd_ref, edd_ref, eye_ref)
-    else:
-        ea_ref, eb_ref, sc_ref, qs_ref, s1_ref, s2_ref, o_ref = refs
-        if CHUNK8_STREAM_ONLY:                # measurement-only (see flag)
-            o_ref[...] = (
-                jnp.sum(qs_ref[:, :128].astype(jnp.float32), axis=1)
-                + jnp.sum(s1_ref[...].astype(jnp.float32), axis=1)
-                + jnp.sum(s2_ref[...].astype(jnp.float32), axis=1))[None, :]
-            return
-        es = s1_ref[...].astype(jnp.float32)
-        em = (8.0 * es if fmt == "q4_0"
-              else s2_ref[...].astype(jnp.float32))
-    res = _chunk8_compute(
-        ea_ref, eb_ref, sc_ref[...], qs_ref, es, em,
-        n_segs=n_segs, splits=splits, store=_store_row(o_ref))
-    if res is not None:
-        o_ref[...] = res
-
-
-# Scale-fold placement for _chunk8_compute:
-#   "full"    — (round-3 shipped) concat all subtile int32 partials, then one
-#               [bn, Kb] f32 scale fold at the end of the grid step;
-#   "subtile" — fold each ~1024-row subtile's scales right after its dots,
-#               so subtile i's VPU fold can overlap subtile i+1's MXU dots
-#               and the [bn, Kb] f32 temporaries never materialize (the
-#               drain at the end of each grid step shrinks to one subtile).
-CHUNK8_FOLD = "subtile"
-
-
-def _store_row(o_ref, col0=0):
-    """store(r0, rows, y[rows]) callback writing o_ref[0, col0+r0 : +rows]
-    (col0 may be traced; offsets are 128-multiples by construction)."""
-    def store(r0, rows, y):
-        o_ref[0:1, pl.ds(col0 + r0, rows)] = y[None, :]
-    return store
-
-
-def _chunk8_compute(ea_ref, eb_ref, sc, qs_ref, es, em, *,
-                    n_segs: int, splits: tuple[int, ...] | None,
-                    store=None):
-    """The chunk8 compute body on one weight block (refs or arrays for
-    ea/eb/qs), shared by the standalone kernel and the fused kernels.
-    Returns y [1, bn] — or, with the subtile fold and a ``store(r0, rows,
-    y_rows)`` callback, writes each subtile's [rows] row-sums through the
-    callback and returns None. The callback exists because Mosaic's 1-D
-    vector concatenate needs 1024-aligned offsets ("Input offsets outside
-    of the first tile" at e.g. the lm_head's (1152, 1024, 1024) splits);
-    storing straight to the output ref also shortens the drain."""
-    dims = (((1,), (0,)), ((), ()))
-    splits = splits or (qs_ref.shape[0],)
-
-    def dots(p, lo):
-        if n_segs > 1:
-            csz = p.shape[1] // n_segs                # bytes per segment
-            zl_parts, zp_parts = [], []
-            for s in range(n_segs):
-                sl = slice(s * csz, (s + 1) * csz)
-                zl_parts.append(jax.lax.dot_general(
-                    lo[:, sl], ea_ref[sl, :], dims,
-                    preferred_element_type=jnp.int32))
-                zp_parts.append(jax.lax.dot_general(
-                    p[:, sl], eb_ref[sl, :], dims,
-                    preferred_element_type=jnp.int32))
-            return (jnp.concatenate(zl_parts, axis=1),    # [rows, Kb]
-                    jnp.concatenate(zp_parts, axis=1))
-        return (jax.lax.dot_general(lo, ea_ref[...], dims,
-                                    preferred_element_type=jnp.int32),
-                jax.lax.dot_general(p, eb_ref[...], dims,
-                                    preferred_element_type=jnp.int32))
-
-    sa, sb = sc[2:3], sc[3:4]                         # [1, Kb] f32
-
-    def fold(zl_i, zp_i, r0, rows):
-        z = (sa * zl_i.astype(jnp.float32) + sb * zp_i.astype(jnp.float32)
-             + sc[0:1])
-        y = es[r0:r0 + rows] * z - em[r0:r0 + rows] * sc[1:2]
-        return jnp.sum(y, axis=1)                     # [rows]
-
-    if CHUNK8_FOLD == "subtile":
-        ys, r0 = [], 0
-        for rows in splits:
-            p = qs_ref[r0:r0 + rows, :]               # [rows, K/2] int8
-            zl_i, zp_i = dots(p, p & 0x0F)
-            y_i = fold(zl_i, zp_i, r0, rows)
-            if store is not None:
-                store(r0, rows, y_i)
-            else:
-                ys.append(y_i)
-            r0 += rows
-        if store is not None:
-            return None
-        y = ys[0] if len(ys) == 1 else jnp.concatenate(ys)
-        return y[None, :]
-
-    zls, zps, r0 = [], [], 0
-    for rows in splits:
-        p = qs_ref[r0:r0 + rows, :]                   # [rows, K/2] int8
-        zl_i, zp_i = dots(p, p & 0x0F)
-        zls.append(zl_i)
-        zps.append(zp_i)
-        r0 += rows
-    zl = zls[0] if len(zls) == 1 else jnp.concatenate(zls, axis=0)
-    zp = zps[0] if len(zps) == 1 else jnp.concatenate(zps, axis=0)
-    return fold(zl, zp, 0, qs_ref.shape[0])[None, :]
-
-
-def _block_sums(v, kb, n_segs):
-    """Per-scale-block sums of a byte-lane [KH] vector: block of byte-lane
-    j is ``j mod kb`` (global interleave) or ``(j // 2048)*128 + j mod 128``
-    (segment-local). Returns [kb]."""
-    if n_segs > 1:
-        return v.reshape(n_segs, -1, 128).sum(1).reshape(-1)
-    return v.reshape(-1, kb).sum(0)
-
-
-def _quant_rows_blockwise(v, kb, n_segs=1):
-    """Per-block int8 quantization of a byte-lane [KH] vector (block
-    indexing as in _block_sums); returns (q int8 [KH], scale f32 [kb])."""
-    if n_segs > 1:
-        s = v.reshape(n_segs, -1, 128)
-        amax = jnp.max(jnp.abs(s), axis=1)                 # [S, 128]
-        scale = jnp.where(amax == 0.0, 1.0, amax / 127.0)
-        q = jnp.clip(jnp.round(s / scale[:, None, :]), -127, 127
-                     ).astype(jnp.int8)
-        return q.reshape(-1), scale.reshape(-1)
-    s = v.reshape(-1, kb)
-    amax = jnp.max(jnp.abs(s), axis=0)
-    scale = jnp.where(amax == 0.0, 1.0, amax / 127.0)
-    q = jnp.clip(jnp.round(s / scale[None, :]), -127, 127).astype(jnp.int8)
-    return q.reshape(-1), scale
-
-
-def chunk8_plan(N: int, K: int, block_n: int | None = None,
-                enc: str = "e") -> dict:
-    """Tile plan + VMEM-footprint estimate for the chunk8 q4 matvec — the
-    analog of the reference's shared-memory-KB report
-    (/root/reference/src/kernel_test.h:230-232): the bench rig prints
-    these so tile/VMEM budgeting is visible, and the dispatch consumes
-    the same plan so the report cannot drift from reality."""
-    kb = K // QK
-    kh = K // 2
-    if block_n is None:
-        if _n_segs(K) > 1:
-            # segment-local K (e.g. 12288): with the round-4 subtile fold,
-            # bn=1024 (grid 4, one subtile) measured best at (4096, 12288):
-            # 48.2 us/iter 79.7% vs 55.8/68.8 at 512 and 55.5/69.3 at 2048
-            # (tools/shape_probe.py; the pre-fold sweep had picked 512)
-            cap = 1024
-        else:
-            # bn=4096 stays the cap: a round-4 sweep briefly "measured"
-            # bn=8192 at 88.8% vs 86.2, but that was a PROTOCOL ARTIFACT —
-            # the forced block_n gave the pair's SMALL side (N=8192) a
-            # 1-step grid, which serializes DMA/compute, inflating t_small
-            # and therefore the marginal. Two full driver-protocol runs
-            # with an 8192 default measured 77.5/77.8% (inferred per-byte
-            # rate of 8192-row tiles ~79.5% vs 86.2 at 4096: the bigger
-            # tile's subtile chain drains without overlap for longer).
-            # Sweep tools must keep >= 2 grid steps on BOTH pair sizes.
-            cap = min(4096, int(3.2e7) // K // 128 * 128)
-        if N > cap:
-            # ZERO-pad tilings first: a bn with N % bn == 0 avoids the
-            # jnp.pad row copy in the dispatch — which XLA does NOT hoist
-            # out of a decode scan, so any padded tensor re-copies its
-            # whole quantized payload every step (measured: the q4_k
-            # lm_head [32000, 4096] ran at 29% of the HBM roofline inside
-            # the scan, 345.7 us vs ~120, purely from the 32768-row pad;
-            # tools/nonlayer_probe.py round 4). Prefer the largest
-            # 128-multiple divisor tile >= 1024; fall back to the
-            # minimal-pad tiling when divisors force tiny tiles.
-            bn = _bn_no_pad(N, cap)
-            if bn == 0:
-                steps = -(-N // cap)
-                bn = -(-N // steps // 128) * 128      # minimize padding
-        else:
-            bn = N if N % 128 == 0 else -(-N // 128) * 128
-        if bn == N and N >= 2048:
-            half = N // 2
-            bn = (half if half % 128 == 0
-                  else -(-N // 2 // 128) * 128)       # >= 2 steps
-    else:
-        bn = block_n
-    bn = min(bn, -(-N // 128) * 128)
-    Np = -(-N // bn) * bn
-    splits = _row_splits(bn)
-    # raise Mosaic's scoped-VMEM limit (default ~16 MB) when the working
-    # set needs it — v5e has 128 MB physical VMEM and the probes ran the
-    # 4096-row tiles at a 100 MB cap without issue
-    vmem_limit = 100 * 2**20 if bn * K > 6.3e6 else None
-    segs = _n_segs(K)
-    kb_sel = 128 if segs > 1 else kb
-    # scale stream sized from the ACTUAL encoding (``enc``, from the
-    # QuantLinear when dispatched): s6 streams int8 sc/mn [bn, kb] x2 +
-    # bf16 d|dmin [bn, K/128]; the default "e" streams bf16 es/em
-    s6 = enc == "s6" and K % (128 * QK) == 0
-    scale_bytes = (2 * (2 * bn * kb + 2 * bn * (K // 128))
-                   if s6 else 2 * 2 * 2 * bn * kb)
-    est = {
-        "payload (2 slots)": 2 * bn * kh,
-        ("scales sc/mn/dd (2 slots)" if s6 else
-         "scales es/em (2 slots)"): scale_bytes,
-        "selectors ea/eb": 2 * kh * kb_sel,
-        "lo subtile": max(splits) * kh,
-        "int32 partials": 2 * 4 * bn * kb,
-        "activation consts": 4 * 4 * kb + 2 * bn * 4,
-    }
-    return dict(bn=bn, Np=Np, splits=splits, grid=Np // bn,
-                vmem_limit=vmem_limit, vmem_est=est,
-                vmem_est_total=sum(est.values()))
-
-
-def _qmatmul_chunk8(xp, ql, N, K, kb, block_n, out_dtype, interpret):
-    """Dispatch for the integer-dot B=1 q4 matvec (see _chunk8_kernel).
-
-    Tile policy (round-2, measured in tools/exp_q4_r2.py):
-    - BIG row tiles (up to 4096) amortize the ~0.5 us/grid-step fixed cost
-      (semaphores, index maps, epilogue) — the DMA floor measured 87% at
-      bn=1024 vs ~103% at bn=2048+.
-    - Mosaic's default ~16 MB scoped-VMEM limit made big tiles regress in
-      round 1 (bn=2048: 94.6 tok/s); compiler_params raises it (v5e has
-      128 MB physical VMEM) and the 2-slot payload is capped at ~32 MB.
-    - Row-subtiled kernel body (~1024-row subtiles, see _chunk8_kernel)
-      keeps the AND/dot chain pipelined at big tiles: 97% roofline
-      measured at bn=4096/4 subtiles vs 71-74% monolithic.
-    - bn is padding-aware: pick the step count first, then the smallest
-      128-multiple tile covering N in that many steps (N=11008 -> 3 x
-      3712 = 11136, 1.2% pad, instead of 3 x 4096 = 12288, 11.6% dead
-      DMA).
-    - Keep >= 2 grid steps when N allows so Mosaic double-buffers the
-      weight stream within the call (a 1-step grid serializes DMA and
-      compute).
-
-    Measured dead ends (do not re-try): bf16 selector dots (73 tok/s vs
-    110 int8); one-dot concat LHS [lo|p] against a stacked selector (the
-    in-kernel concat costs more than the saved dot: 44-51% roofline);
-    zp-on-MXU + zl-as-VPU-fold (72-76%).
-    """
-    s6 = ql.enc == "s6" and ql.fmt == "q4_k"
-    fields = _fields(ql)
-    kh = K // 2
-    plan = chunk8_plan(N, K, block_n, enc=ql.enc)
-    bn, Np, splits = plan["bn"], plan["Np"], plan["splits"]
-    vmem_bytes = plan["vmem_limit"]
-
-    def pad_rows(a):
-        return (jnp.pad(a, ((0, Np - a.shape[0]), (0, 0)))
-                if a.shape[0] != Np else a)
-
-    arrays = [pad_rows(getattr(ql, f)) for f in fields]
-    segs = _n_segs(K)
-    kb_sel = 128 if segs > 1 else kb      # selector column count
-    xl, xh = xp[0, :kh], xp[0, kh:]
-    a = xl - xh / 16.0
-    bvec = xh / 16.0
-    aq, sa = _quant_rows_blockwise(a, kb, segs)
-    bq, sb = _quant_rows_blockwise(bvec, kb, segs)
-    sel = _selector_np(kh if segs == 1 else kh // segs, kb_sel).astype(np.int8)
-    if segs > 1:
-        sel = np.tile(sel, (segs, 1))                 # [KH, 128]
-    sel = jnp.asarray(sel)
-    ea = aq[:, None] * sel
-    eb = bq[:, None] * sel
-    c = 8.0 * _block_sums(xh, kb, segs)
-    xs = _block_sums(xl + xh, kb, segs)
-    sc = jnp.stack([c, xs, sa, sb])                   # [4, Kb] f32
-    cp = dict(dimension_semantics=("arbitrary",))
-    if vmem_bytes is not None:
-        cp["vmem_limit_bytes"] = vmem_bytes
-    const = lambda n: (0, 0)
-    tile = lambda n: (n, 0)
-    in_specs = [
-        pl.BlockSpec((kh, kb_sel), const),
-        pl.BlockSpec((kh, kb_sel), const),
-        pl.BlockSpec((4, kb), const),
-    ]
-    operands = [ea, eb, sc]
-    if s6:
-        edd = jnp.asarray(_dd_expand_np(K, ql.layout))
-        eye = jnp.asarray(_eye_operand(2 * kb))
-        dd_spec = (pl.BlockSpec((Np, K // QK_K * 2), const)
-                   if S6_DECODE_VARIANT == "constdd"
-                   else pl.BlockSpec((bn, K // QK_K * 2), tile))
-        in_specs += [pl.BlockSpec(edd.shape, const),
-                     pl.BlockSpec(eye.shape, const),
-                     pl.BlockSpec((bn, kh), tile),
-                     pl.BlockSpec((bn, 2 * kb), tile),
-                     dd_spec]
-        operands += [edd, eye, *arrays]               # qs, sm, dd
-    else:
-        s1 = arrays[1]
-        s2 = arrays[2] if len(arrays) > 2 else arrays[1]
-        in_specs += [pl.BlockSpec((bn, kh), tile),
-                     pl.BlockSpec((bn, kb), tile),
-                     pl.BlockSpec((bn, kb), tile)]
-        operands += [arrays[0], s1, s2]
-    n_extra = CHUNK8_EXTRA_CONST_WINDOWS + CHUNK8_EXTRA_TILED_WINDOWS
-    if n_extra:                               # measurement-only (see flags)
-        for _ in range(CHUNK8_EXTRA_CONST_WINDOWS):
-            in_specs.append(pl.BlockSpec((128, 128), const))
-            operands.append(jnp.zeros((128, 128), jnp.int8))
-        for _ in range(CHUNK8_EXTRA_TILED_WINDOWS):
-            in_specs.append(pl.BlockSpec((bn, 128), tile))
-            operands.append(jnp.zeros((Np, 128), jnp.int8))
-    out = pl.pallas_call(
-        functools.partial(_chunk8_kernel, fmt=ql.fmt, n_segs=segs,
-                          splits=splits, s6=s6, n_extra=n_extra),
-        out_shape=jax.ShapeDtypeStruct((1, Np), jnp.float32),
-        grid=(Np // bn,),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((1, bn), lambda n: (0, n)),
-        compiler_params=pltpu.CompilerParams(**cp),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * N * K,
-            bytes_accessed=sum(a_.size * a_.dtype.itemsize
-                               for a_ in arrays) + K * 4 + Np * 4,
-            transcendentals=0),
-        interpret=interpret_default(interpret),
-    )(*operands)
-    return out[:, :N].astype(out_dtype)
-
-
-def _qmatmul_chunk(xp, ql, N, K, kb, block_n, out_dtype, interpret):
-    """Dispatch for the chunk-fold B=1 q4 matvec (see _chunk_kernel)."""
-    s6 = ql.enc == "s6" and ql.fmt == "q4_k"
-    fields = _fields(ql)
-    kh = K // 2
-    if block_n is None:
-        cap = max(128, (8_388_608 // K) // 128 * 128)
-        bn = _bn_no_pad(N, cap) or cap        # zero-pad tiling first
-    else:
-        bn = block_n
-    bn = min(bn, N)
-    Np = -(-N // bn) * bn
-
-    def pad_rows(a):
-        return (jnp.pad(a, ((0, Np - a.shape[0]), (0, 0)))
-                if a.shape[0] != Np else a)
-
-    arrays = [pad_rows(getattr(ql, f)) for f in fields]
-    segs = _n_segs(K)
-    xl, xh = xp[0, :kh], xp[0, kh:]
-    a = xl[None, :]
-    bvec = (xh - 16.0 * xl)[None, :]
-    c = 128.0 * _block_sums(xl, kb, segs)
-    xs = _block_sums(xl + xh, kb, segs)
-    sc = jnp.stack([c, xs])                            # [2, Kb]
-    const = lambda n: (0, 0)
-    tile = lambda n: (n, 0)
-    in_specs = [
-        pl.BlockSpec((1, kh), const),
-        pl.BlockSpec((1, kh), const),
-        pl.BlockSpec((2, kb), const),
-    ]
-    operands = [a, bvec, sc]
-    if s6:
-        edd = jnp.asarray(_dd_expand_np(K, ql.layout))
-        eye = jnp.asarray(_eye_operand(2 * kb))
-        in_specs += [pl.BlockSpec(edd.shape, const),
-                     pl.BlockSpec(eye.shape, const),
-                     pl.BlockSpec((bn, kh), tile),
-                     pl.BlockSpec((bn, 2 * kb), tile),
-                     pl.BlockSpec((bn, K // QK_K * 2), tile)]
-        operands += [edd, eye, *arrays]                # qs, sm, dd
-    else:
-        s1 = arrays[1]
-        s2 = arrays[2] if len(arrays) > 2 else arrays[1]
-        in_specs += [pl.BlockSpec((bn, kh), tile),
-                     pl.BlockSpec((bn, kb), tile),
-                     pl.BlockSpec((bn, kb), tile)]
-        operands += [arrays[0], s1, s2]
-    out = pl.pallas_call(
-        functools.partial(_chunk_kernel, fmt=ql.fmt, n_chunks=kh // kb,
-                          n_segs=segs, s6=s6),
-        out_shape=jax.ShapeDtypeStruct((1, Np), jnp.float32),
-        grid=(Np // bn,),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((1, bn), lambda n: (0, n)),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",)),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * N * K,
-            bytes_accessed=sum(a_.size * a_.dtype.itemsize
-                               for a_ in arrays) + K * 4 + Np * 4,
-            transcendentals=0),
-        interpret=interpret_default(interpret),
-    )(*operands)
-    return out[:, :N].astype(out_dtype)
-
-
-# ---------------------------------------------------------------------------
-# fused MLP kernel: w_gu matvec -> silu*mul -> w_down matvec, ONE launch
-# ---------------------------------------------------------------------------
-
-
-def _act_quant_build(xp, segs: int, eye_f32, ea, eb, sc):
-    """In-kernel chunk8 activation-operand build from a PERMUTED [1, K]
-    value: per-32-block int8 quantization of a = xl - xh/16 and b = xh/16,
-    diagonal selector tiles ea/eb [K/2, 128] (eye outer product), and the
-    sc rows (correction c, block sums xs, scales sa/sb) — the in-kernel
-    twin of the XLA prep in _qmatmul_chunk8. Shared by the fused-MLP
-    mid boundary and the layer kernel's entry/post-attention boundaries."""
-    K = xp.shape[1]
-    kh = K // 2
-    xl = xp[:, :kh]
-    xh = xp[:, kh:]
-    a = xl - xh / 16.0
-    b = xh / 16.0
-    span = kh // segs                             # byte-lanes per segment
-    nrow = span // 128
-    for s in range(segs):
-        base = s * span
-        amax_a = jnp.zeros((1, 128), jnp.float32)
-        amax_b = jnp.zeros((1, 128), jnp.float32)
-        sum_xh = jnp.zeros((1, 128), jnp.float32)
-        sum_x = jnp.zeros((1, 128), jnp.float32)
-        for t in range(nrow):
-            sl = slice(base + t * 128, base + (t + 1) * 128)
-            amax_a = jnp.maximum(amax_a, jnp.abs(a[:, sl]))
-            amax_b = jnp.maximum(amax_b, jnp.abs(b[:, sl]))
-            sum_xh = sum_xh + xh[:, sl]
-            sum_x = sum_x + xl[:, sl] + xh[:, sl]
-        sa = jnp.where(amax_a == 0.0, 1.0, amax_a / 127.0)
-        sb = jnp.where(amax_b == 0.0, 1.0, amax_b / 127.0)
-        cs = slice(s * 128, (s + 1) * 128)
-        sc[0:1, cs] = 8.0 * sum_xh
-        sc[1:2, cs] = sum_x
-        sc[2:3, cs] = sa
-        sc[3:4, cs] = sb
-        for t in range(nrow):
-            sl = slice(base + t * 128, base + (t + 1) * 128)
-            aq = jnp.clip(jnp.round(a[:, sl] / sa), -127, 127)
-            bq = jnp.clip(jnp.round(b[:, sl] / sb), -127, 127)
-            ea[sl, :] = (eye_f32 * aq).astype(jnp.int8)
-            eb[sl, :] = (eye_f32 * bq).astype(jnp.int8)
-
-def _fused_mlp_kernel(*refs,
-                      nA: int, bnA: int, Kd: int,
-                      splitsA, splitsD, segsD: int,
-                      s6g: bool = False, s6d: bool = False):
-    """Whole decode MLP in one Pallas call (B=1): per-call latency at
-    decode batch 1 measured ~20 us regardless of tile size
-    (tools/shape_probe.py), so fusing the two matvecs + the silu glue
-    saves a full launch round per layer.
-
-    Phases over one grid: steps [0, nA) run the chunk8 body on w_gu
-    tiles, accumulating y_gu into VMEM scratch; the LAST A step computes
-    mid = silu(gate)*up and builds w_down's activation operands in-kernel
-    (per-32-block int8 quant + diagonal selector tiles ead/ebd = eye *
-    aq, block-sum rows scd) — no activation permute is needed because
-    w_gu's ROWS are pre-ordered at quantize time so y_gu emerges already
-    in w_down's interleaved activation order (reorder_gu_rows); steps
-    [nA, nA+nB) run the chunk8 body on w_down tiles against the scratch
-    operands and write the output."""
-    it = iter(refs)
-    ab4_ref, sc4_ref, eye_ref = next(it), next(it), next(it)
-    eddg_ref = eyeg_ref = eddd_ref = eyed_ref = None
-    gdd_ref = ddd_ref = gem_ref = dem_ref = None
-    if s6g:
-        eddg_ref, eyeg_ref = next(it), next(it)
-    if s6d:
-        eddd_ref, eyed_ref = next(it), next(it)
-    if s6g:
-        gqs_ref, ges_ref, gdd_ref = next(it), next(it), next(it)
-    else:
-        gqs_ref, ges_ref, gem_ref = next(it), next(it), next(it)
-    if s6d:
-        dqs_ref, des_ref, ddd_ref = next(it), next(it), next(it)
-    else:
-        dqs_ref, des_ref, dem_ref = next(it), next(it), next(it)
-    o_ref, ygu, ea4, eb4, ead, ebd, scd = it
-
-    i = pl.program_id(0)
-    khd = Kd // 2
-
-    @pl.when(i == 0)
-    def _build_gu_selectors():
-        # in-kernel eye-outer-product selector build (one [32, 128] int8
-        # operand instead of two [2048, 128] windows: per-grid-step window
-        # bookkeeping and the prologue fetch both scale with window count)
-        eye = eye_ref[...].astype(jnp.float32)
-        nt = ea4.shape[0] // 128
-        for t in range(nt):
-            sl = slice(128 * t, 128 * (t + 1))
-            ea4[sl, :] = (eye * ab4_ref[t:t + 1, :].astype(jnp.float32)
-                          ).astype(jnp.int8)
-            eb4[sl, :] = (eye * ab4_ref[nt + t:nt + t + 1, :]
-                          .astype(jnp.float32)).astype(jnp.int8)
-
-    @pl.when(i < nA)
-    def _gu():
-        if s6g:
-            es, em = _decode_es_em_s6(ges_ref, gdd_ref, eddg_ref, eyeg_ref)
-        else:
-            es = ges_ref[...].astype(jnp.float32)
-            em = gem_ref[...].astype(jnp.float32)
-        y = _chunk8_compute(ea4, eb4, sc4_ref[...], gqs_ref,
-                            es, em, n_segs=1, splits=splitsA,
-                            store=_store_row(ygu, i * bnA))
-        if y is not None:
-            ygu[0:1, pl.ds(i * bnA, bnA)] = y
-
-    @pl.when(i == nA - 1)
-    def _boundary():
-        g = ygu[0:1, :Kd]
-        u = ygu[0:1, Kd:]
-        mid = (g * jax.nn.sigmoid(g)) * u             # silu(g)*u, [1, Kd]
-        _act_quant_build(mid, segsD, eye_ref[...].astype(jnp.float32),
-                         ead, ebd, scd)
-
-    @pl.when(i >= nA)
-    def _down():
-        if s6d:
-            es, em = _decode_es_em_s6(des_ref, ddd_ref, eddd_ref, eyed_ref)
-        else:
-            es = des_ref[...].astype(jnp.float32)
-            em = dem_ref[...].astype(jnp.float32)
-        res = _chunk8_compute(ead, ebd, scd[...], dqs_ref,
-                              es, em, n_segs=segsD, splits=splitsD,
-                              store=_store_row(o_ref))
-        if res is not None:
-            o_ref[...] = res
-
-
-def reorder_gu_rows(w_gate: np.ndarray, w_up: np.ndarray) -> np.ndarray:
-    """Stack gate/up for the fused-MLP layout: rows pre-permuted into
-    w_down's interleaved ACTIVATION order, so y = x @ W^T comes out as
-    [gate[perm(Kd)] ; up[perm(Kd)]] and the fused kernel needs no
-    in-kernel permute. The unfused path recovers logical order with
-    _inv_perm (see models/llama._mlp_block)."""
-    kd = w_gate.shape[0]
-    p = _perm(kd)
-    return np.concatenate([w_gate[p], w_up[p]])
-
-
-def mlp_fused_supported(w_guf: "QuantLinear", w_down: "QuantLinear") -> bool:
-    if w_guf is None or w_down is None:
-        return False
-    if not (isinstance(w_guf, QuantLinear) and isinstance(w_down, QuantLinear)):
-        return False
-    if w_guf.fmt != "q4_k" or w_down.fmt != "q4_k":
-        return False
-    Ng, Kg = w_guf.array_shape
-    Nd, Kd = w_down.array_shape
-    return (Ng == 2 * Kd and _n_segs(Kg) == 1 and (Kg // QK) % 128 == 0
-            and Kd % _SEG == 0)
-
-
-@functools.partial(jax.jit, static_argnames=("out_dtype", "interpret"))
-def mlp_fused(xp4: jax.Array, w_guf: "QuantLinear", w_down: "QuantLinear",
-              *, out_dtype=jnp.float32, interpret: bool | None = None
-              ) -> jax.Array:
-    """y[1, Nd] = fused silu-MLP of xp4 [1, Kg] (ALREADY in Kg interleaved
-    order). w_guf must be built with reorder_gu_rows."""
-    Ng, Kg = w_guf.array_shape
-    Nd, Kd = w_down.array_shape
-    assert mlp_fused_supported(w_guf, w_down)
-    kbg, kbd = Kg // QK, Kd // QK
-    khg, khd = Kg // 2, Kd // 2
-    segsD = _n_segs(Kd)
-
-    planA = chunk8_plan(Ng, Kg)
-    bnA, splitsA = planA["bn"], planA["splits"]
-    assert Ng % bnA == 0, (Ng, bnA)
-    nA = Ng // bnA
-    planD = chunk8_plan(Nd, Kd)
-    bnD, splitsD = planD["bn"], planD["splits"]
-    NpD = planD["Np"]
-    nB = NpD // bnD
-
-    xl, xh = xp4[0, :khg], xp4[0, khg:]
-    aq, sa = _quant_rows_blockwise(xl - xh / 16.0, kbg, 1)
-    bq, sb = _quant_rows_blockwise(xh / 16.0, kbg, 1)
-    ab4 = jnp.concatenate([aq.reshape(khg // 128, 128),
-                           bq.reshape(khg // 128, 128)])
-    sc4 = jnp.stack([8.0 * _block_sums(xh, kbg, 1),
-                     _block_sums(xl + xh, kbg, 1), sa, sb])
-    eye = jnp.asarray(np.eye(128, dtype=np.int8))
-
-    def padN(a):
-        return (jnp.pad(a, ((0, NpD - a.shape[0]), (0, 0)))
-                if a.shape[0] != NpD else a)
-
-    s6g = w_guf.enc == "s6"
-    s6d = w_down.enc == "s6"
-    arrays_g = ([w_guf.qs, w_guf.es, w_guf.d] if s6g
-                else [w_guf.qs, w_guf.es, w_guf.em])
-    arrays_d = ([padN(w_down.qs), padN(w_down.es), padN(w_down.d)] if s6d
-                else [padN(w_down.qs), padN(w_down.es), padN(w_down.em)])
-
-    gmap = lambda i: (jnp.minimum(i, nA - 1), 0)
-    dmap = lambda i: (jnp.maximum(i - nA, 0), 0)
-    const = lambda i: (0, 0)
-    in_specs = [
-        pl.BlockSpec((khg // 64, 128), const),   # ab4 (a rows | b rows)
-        pl.BlockSpec((4, kbg), const),
-        pl.BlockSpec((128, 128), const),
-    ]
-    consts = [ab4, sc4, eye]
-    if s6g:
-        eddg = jnp.asarray(_dd_expand_np(Kg, w_guf.layout))
-        eyeg = jnp.asarray(_eye_operand(2 * kbg))
-        in_specs += [pl.BlockSpec(eddg.shape, const),
-                     pl.BlockSpec(eyeg.shape, const)]
-        consts += [eddg, eyeg]
-    if s6d:
-        eddd = jnp.asarray(_dd_expand_np(Kd, w_down.layout))
-        eyed = jnp.asarray(_eye_operand(2 * kbd))
-        in_specs += [pl.BlockSpec(eddd.shape, const),
-                     pl.BlockSpec(eyed.shape, const)]
-        consts += [eddd, eyed]
-    in_specs += [
-        pl.BlockSpec((bnA, khg), gmap),
-        pl.BlockSpec((bnA, 2 * kbg if s6g else kbg), gmap),
-        pl.BlockSpec((bnA, Kg // QK_K * 2 if s6g else kbg), gmap),
-    ]
-    in_specs += [
-        pl.BlockSpec((bnD, khd), dmap),
-        pl.BlockSpec((bnD, 2 * kbd if s6d else kbd), dmap),
-        pl.BlockSpec((bnD, Kd // QK_K * 2 if s6d else kbd), dmap),
-    ]
-    out = pl.pallas_call(
-        functools.partial(
-            _fused_mlp_kernel, nA=nA, bnA=bnA, Kd=Kd,
-            splitsA=splitsA, splitsD=splitsD, segsD=segsD,
-            s6g=s6g, s6d=s6d),
-        out_shape=jax.ShapeDtypeStruct((1, NpD), jnp.float32),
-        grid=(nA + nB,),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((1, bnD),
-                               lambda i: (0, jnp.maximum(i - nA, 0))),
-        scratch_shapes=[
-            pltpu.VMEM((1, Ng), jnp.float32),        # y_gu
-            pltpu.VMEM((khg, 128), jnp.int8),        # ea_gu
-            pltpu.VMEM((khg, 128), jnp.int8),        # eb_gu
-            pltpu.VMEM((khd, 128), jnp.int8),        # ea_down
-            pltpu.VMEM((khd, 128), jnp.int8),        # eb_down
-            pltpu.VMEM((4, kbd), jnp.float32),       # sc_down
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            vmem_limit_bytes=100 * 2**20),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * (Ng * Kg + Nd * Kd),
-            bytes_accessed=sum(a.size * a.dtype.itemsize
-                               for a in arrays_g + arrays_d),
-            transcendentals=Kd),
-        interpret=interpret_default(interpret),
-    )(*consts, *arrays_g, *arrays_d)
-    return out[:, :Nd].astype(out_dtype)
-
-
-# ---------------------------------------------------------------------------
-# XLA baselines
-# ---------------------------------------------------------------------------
-
-def _qmatmul_pipelined(xp, ql, B, N, K, kb, block_n, out_dtype, interpret):
-    """Dispatch for the software-pipelined kernel (see _pipe_kernel)."""
-    s6 = ql.fmt == "q4_k" and ql.enc == "s6"
-    fields = _fields(ql)
-    Bp = max(8, -(-B // 8) * 8)
-    if Bp != B:
-        xp = jnp.pad(xp, ((0, Bp - B), (0, 0)))
-    if block_n is None:
-        # big-B (prefill) tiles: x (2*B*K) + the [2, bn, K] bf16 scratch +
-        # f32 dequant temporaries (~4*bn*K) + double-buffered payload
-        # (~bn*K) must fit the RAISED scoped-VMEM cap (Mosaic defaults to
-        # ~16 MB; v5e has 128 MB — same fix as chunk8_plan). Bigger tiles
-        # amortize per-step cost and improve MXU shapes for TTFT.
-        budget = int((60_000_000 - 2 * B * K) // (9 * K))
-        cap = max(128, min(1024, budget // 128 * 128))
-        # ZERO-pad tilings first (chunk8_plan's rule): an N % bn != 0
-        # dispatch jnp.pads the ENTIRE weight inside the jit, re-copying
-        # the full quantized payload every call — the 7B prefill w_down
-        # [4096, 12288] drew bn=384 -> Np=4224 from the bare budget cap,
-        # a ~30 MB copy per layer per prefill (~2 ms of TTFT, r5)
-        block_n = _bn_no_pad(N, cap, min_bn=128) or cap
-    bn = min(block_n, N)
-    Np = -(-N // bn) * bn
-    vmem_bytes = (100 * 2**20
-                  if (2 * B * K + 9 * bn * K) > 12_500_000 else None)
-
-    def pad_rows(a):
-        return (jnp.pad(a, ((0, Np - a.shape[0]), (0, 0)))
-                if a.shape[0] != Np else a)
-
-    arrays = [pad_rows(getattr(ql, f)) for f in fields]
-    n_tiles = Np // bn
-
-    def wmap(i):
-        return (jnp.minimum(i, n_tiles - 1), 0)   # clamp the epilogue step
-
-    in_specs = [pl.BlockSpec((Bp, K), lambda i: (0, 0))]
-    for f in fields:
-        div = _lane_div(ql.fmt, f, s6)
-        in_specs.append(pl.BlockSpec((bn, K // div), wmap))
-    operands = [xp, *arrays]
-    if s6:
-        edd = jnp.asarray(_dd_expand_np(K, ql.layout))
-        eye = jnp.asarray(_eye_operand(2 * kb))
-        in_specs += [pl.BlockSpec(edd.shape, lambda i: (0, 0)),
-                     pl.BlockSpec(eye.shape, lambda i: (0, 0))]
-        operands += [edd, eye]
-
-    cp = dict(dimension_semantics=("arbitrary",))
-    if vmem_bytes is not None:
-        cp["vmem_limit_bytes"] = vmem_bytes
-    cost = pl.CostEstimate(
-        flops=2 * Bp * Np * K,
-        bytes_accessed=sum(a.size * a.dtype.itemsize for a in arrays),
-        transcendentals=0)
-    if PIPE_MODE == "sub":
-        out = pl.pallas_call(
-            functools.partial(_pipe_sub_kernel, fmt=ql.fmt,
-                              n_segs=_n_segs(K), s6=s6,
-                              splits=_row_splits(bn, PIPE_SUB_ROWS)),
-            out_shape=jax.ShapeDtypeStruct((Bp, Np), out_dtype),
-            grid=(n_tiles,),
-            in_specs=in_specs,
-            out_specs=pl.BlockSpec((Bp, bn), lambda i: (0, i)),
-            compiler_params=pltpu.CompilerParams(**cp),
-            cost_estimate=cost,
-            interpret=interpret_default(interpret),
-        )(*operands)
-        return out[:B, :N]
-    out = pl.pallas_call(
-        functools.partial(_pipe_kernel, fmt=ql.fmt, n_tiles=n_tiles,
-                          n_segs=_n_segs(K), s6=s6, phase=PIPE_PHASE),
-        out_shape=jax.ShapeDtypeStruct((Bp, Np), out_dtype),
-        grid=(n_tiles + 1,),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((Bp, bn),
-                               lambda i: (0, jnp.maximum(i - 1, 0))),
-        scratch_shapes=[pltpu.VMEM((2, bn, K), jnp.bfloat16)],
-        compiler_params=pltpu.CompilerParams(**cp),
-        cost_estimate=cost,
-        interpret=interpret_default(interpret),
-    )(*operands)
-    return out[:B, :N]
-
-
-def dequantize_jnp(ql: QuantLinear, dtype=jnp.float32) -> jax.Array:
-    """XLA-only dequantization to a dense *logical-order* [N, K] array."""
+def _dequant_lanes(ql: QuantLinear, dtype) -> jax.Array:
+    """Dense [N, K] in DEVICE LANE order (no column gather of the weight)."""
+    n, k = ql.array_shape
     if ql.fmt == "q6_k":
         p = ql.qs.astype(jnp.int32)                   # signed-friendly bytes
         lo = (p & 0xF).astype(jnp.float32)
         hi = (((p >> 4) & 0xF) ^ 8).astype(jnp.float32)
         nib = jnp.concatenate([lo, hi], axis=1)       # [N, K] lane order
-        # qh: two signed-friendly nibbles (h0+4h1 | (h2+4h3)^8 per byte)
         p2 = ql.qh.astype(jnp.int32)
         u_lo = (p2 & 0xF)                             # h0 + 4*h1
         u_hi = ((p2 >> 4) & 0xF) ^ 8                  # h2 + 4*h3
         h = jnp.concatenate(
             [u_lo & 3, u_lo >> 2, u_hi & 3, u_hi >> 2],
             axis=1).astype(jnp.float32)
-        # lane j's scale block = perm[j] // 16 (layout-aware: global
-        # interleave OR the segment-local order, _perm_q6)
-        blk = jnp.asarray(np.asarray(_perm_q6(ql.array_shape[1])) // 16)
+        blk = jnp.asarray(np.asarray(_perm_q6(k)) // 16)
         es = ql.es.astype(jnp.float32)[:, blk]
-        wp = es * (nib + 16.0 * h - 32.0)
-        inv = jnp.asarray(_inv_perm_q6(ql.array_shape[1]))
-        return wp[:, inv].astype(dtype)
-    ql = scales_to_e(ql)                    # s6 -> bf16 effective scales
-    refs = {f: getattr(ql, f) for f in _FIELDS[ql.fmt]}
+        return (es * (nib + 16.0 * h - 32.0)).astype(dtype)
+    ql = scales_to_e(ql)
+    cols = jnp.asarray(_block_cols(k))
+    if ql.fmt == "q8_0":
+        s = ql.d.astype(jnp.float32)[:, cols]
+        s = jnp.concatenate([s, s], axis=1)
+        return (ql.qs.astype(jnp.float32) * s).astype(dtype)
+    packed = ql.qs.astype(jnp.int32)                  # [N, K/2]
+    lo = (packed & 0xF).astype(jnp.float32)
+    hi = (((packed >> 4) & 0xF) ^ 8).astype(jnp.float32)
+    if ql.fmt == "q4_0":
+        s = ql.d.astype(jnp.float32)[:, cols]
+        w = jnp.concatenate([(lo - 8.0) * s, (hi - 8.0) * s], axis=1)
+    else:
+        es = ql.es.astype(jnp.float32)[:, cols]
+        em = ql.em.astype(jnp.float32)[:, cols]
+        w = jnp.concatenate([lo * es - em, hi * es - em], axis=1)
+    return w.astype(dtype)
 
-    class _A:  # adapt arrays to the ref[...] protocol used by the kernel
-        def __init__(self, a): self.a = a
-        def __getitem__(self, idx): return self.a
 
-    w_lo, w_hi = _dequant_halves(ql.fmt, {k: _A(v) for k, v in refs.items()},
-                                 _xla_rep, _n_segs(ql.array_shape[1]))
-    wp = w_lo if w_hi is None else jnp.concatenate([w_lo, w_hi], axis=1)
-    inv = jnp.asarray(_inv_perm_layout(ql.array_shape[1], ql.layout))
-    return wp[:, inv].astype(dtype)
+def dequantize_jnp(ql: QuantLinear, dtype=jnp.float32) -> jax.Array:
+    """XLA-only dequantization to a dense *logical-order* [N, K] array."""
+    k = ql.array_shape[1]
+    inv = _inv_perm_q6(k) if ql.fmt == "q6_k" else _inv_perm(k)
+    return _dequant_lanes(ql, dtype)[:, jnp.asarray(inv)]
+
+
+def _permute_x(x: jax.Array, fmt: str) -> jax.Array:
+    return (permute_activations_q6(x) if fmt == "q6_k"
+            else permute_activations(x))
 
 
 def qmatmul_xla(x: jax.Array, ql: QuantLinear, compute_dtype=jnp.float32
                 ) -> jax.Array:
-    """XLA-fused baseline: dequantize then matmul (prefill / comparison)."""
-    w = dequantize_jnp(ql, compute_dtype)
+    """Plain path: dequantize in lane order, reorder x to match, then one
+    dot (cuBLAS on the card). f32 compute asks for full precision; the CPU
+    backend computes in f32 (its dot has no bf16 x bf16 -> f32 form)."""
+    if platform.backend() == "cpu":
+        compute_dtype = jnp.float32
+    w = _dequant_lanes(ql, compute_dtype)
+    prec = (jax.lax.Precision.HIGHEST if compute_dtype == jnp.float32
+            else jax.lax.Precision.DEFAULT)
     return jax.lax.dot_general(
-        x.astype(compute_dtype), w,
+        _permute_x(x, ql.fmt).astype(compute_dtype), w,
         dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
+        preferred_element_type=jnp.float32, precision=prec,
     ).astype(x.dtype)
+
+
+def fake_quant8(x: jax.Array) -> jax.Array:
+    """Per-32-block int8 absmax quantize + dequantize of activations x
+    [..., K] (llama.cpp's Q8 activation blocks); logical blocks map onto
+    whole stored blocks, so this commutes with the column interleave."""
+    *lead, k = x.shape
+    xb = x.astype(jnp.float32).reshape(*lead, k // QK, QK)
+    amax = jnp.max(jnp.abs(xb), axis=-1, keepdims=True)
+    scale = jnp.where(amax == 0.0, 1.0, amax / 127.0)
+    q = jnp.clip(jnp.round(xb / scale), -127, 127)
+    return (q * scale).reshape(*lead, k)
+
+
+# ---------------------------------------------------------------------------
+# fused dequant-matvec kernel (Pallas through Triton)
+# ---------------------------------------------------------------------------
+
+def _pow2_divisor(n: int, cap: int) -> int:
+    """Largest power of two <= cap dividing n."""
+    p = 1
+    while p * 2 <= cap and n % (p * 2) == 0:
+        p *= 2
+    return p
+
+
+# Byte-lanes of one row in the kernel's view: [S, R, kbl], where lane
+# i = (s*R + t)*kbl + c has scale column s*kbl + c. R = 16 for every layout
+# (K/2 byte-lanes over K/32 scale columns); S > 1 only for the segment-local
+# order (kbl = 128 per 4096-element segment).
+_R = 16
+
+
+def _lane_view(k: int) -> tuple[int, int]:
+    """(S, kbl) of the [S, 16, kbl] byte-lane view of a K-wide row."""
+    s = _n_segs(k)
+    return s, k // QK // s
+
+
+def kernel_plan(n: int, k: int, rows: int, block_n: int | None = None,
+                k_splits: int | None = None) -> dict:
+    """Tile plan of the kernel for an [N, K] weight and ``rows`` rows of x:
+    ``bn`` weight rows per block; ``cc`` scale columns per loop step (a
+    step covers ``bc`` = 16 * cc byte-lanes, all sharing those cc scale
+    columns); ``k_splits`` blocks along K, each taking ``chunks_per_split``
+    steps (the last may take fewer; partial sums are added in XLA); ``bp``
+    padded x rows. ``ok`` is False when the shape has no tiling."""
+    kh = k // 2
+    segs, kbl = _lane_view(k)
+    # one row of x runs on the CUDA cores (no padding); more rows pad to
+    # the 16-row tensor-core tile
+    bp = 1 if rows == 1 else max(16, 1 << (rows - 1).bit_length())
+    tile_n, tile_c = TILE_ROW if bp == 1 else TILE_MMA
+    cc = _pow2_divisor(kbl, tile_c)
+    bc = _R * cc
+    bn = block_n or _pow2_divisor(n, tile_n)
+    chunks = kh // bc
+    if k_splits is None:
+        k_splits = 1
+        while (n // max(bn, 1) * k_splits < TARGET_BLOCKS
+               and chunks >= 4 * k_splits):
+            k_splits *= 2
+    ok = (bn >= 16 and n % bn == 0 and bp <= KERNEL_MAX_ROWS and bc >= 16
+          and k_splits <= chunks)
+    return dict(bn=bn, cc=cc, bc=bc, k_splits=k_splits, bp=bp, ok=ok,
+                chunks=chunks, chunks_per_split=-(-chunks // k_splits))
+
+
+# (weight rows per block, scale columns per step), from sweeps on the card
+# at the 7B shapes (PERF.md): for one row of x, and for tensor-core tiles.
+TILE_ROW = (32, 32)
+TILE_MMA = (64, 16)
+TARGET_BLOCKS = 256          # about two blocks per SM on a 132-SM card
+NUM_WARPS = 4
+NUM_STAGES = 3
+
+
+def _qmv_kernel(x_ref, qs_ref, s1_ref, s2_ref, o_ref, *, fmt: str,
+                segs: int, kbl: int, cc: int, chunks: int, per_split: int,
+                compute_dtype):
+    """One [bn, bp] output tile over one K split.
+
+    x: [2S, 16, kbl, bp] permuted activations (lo half, then hi half);
+    qs: [bn, S, 16, kbl] packed q4 bytes, or [bn, 2S, 16, kbl] q8_0 values;
+    s1 / s2: [bn, S, kbl] scales (d, or es / em for q4_k). Each step takes
+    cc scale columns and the 16 x cc byte-lanes that share them, so a
+    scale is loaded once and broadcast in registers."""
+    bn = qs_ref.shape[0]
+    per_seg = kbl // cc
+    j0 = pl.program_id(1) * per_split
+    prec = (jax.lax.Precision.HIGHEST if compute_dtype == jnp.float32
+            else jax.lax.Precision.DEFAULT)
+
+    def body(j, acc):
+        s = j // per_seg
+        cols = pl.ds((j % per_seg) * cc, cc)
+        sc = s1_ref[:, s, cols].astype(jnp.float32)[:, None, :]
+        if fmt == "q8_0":
+            w_lo = qs_ref[:, s, :, cols].astype(jnp.float32) * sc
+            w_hi = qs_ref[:, segs + s, :, cols].astype(jnp.float32) * sc
+        else:
+            p = qs_ref[:, s, :, cols].astype(jnp.int32)
+            lo = (p & 0xF).astype(jnp.float32)
+            hi = (((p >> 4) & 0xF) ^ 8).astype(jnp.float32)
+            if fmt == "q4_0":
+                w_lo, w_hi = (lo - 8.0) * sc, (hi - 8.0) * sc
+            else:
+                m = s2_ref[:, s, cols].astype(jnp.float32)[:, None, :]
+                w_lo, w_hi = lo * sc - m, hi * sc - m
+        w_lo = w_lo.reshape(bn, _R * cc)
+        w_hi = w_hi.reshape(bn, _R * cc)
+        if acc.shape[1] == 1:          # one row: multiply-add, no MMA tile
+            xl = x_ref[s, :, cols, :].reshape(1, _R * cc)
+            xh = x_ref[segs + s, :, cols, :].reshape(1, _R * cc)
+            acc += jnp.sum(w_lo * xl.astype(jnp.float32)
+                           + w_hi * xh.astype(jnp.float32), axis=1)[:, None]
+            return acc
+        xl = x_ref[s, :, cols, :].reshape(_R * cc, -1)
+        xh = x_ref[segs + s, :, cols, :].reshape(_R * cc, -1)
+        acc += pl.dot(w_lo.astype(compute_dtype), xl, precision=prec)
+        acc += pl.dot(w_hi.astype(compute_dtype), xh, precision=prec)
+        return acc
+
+    acc = jax.lax.fori_loop(j0, jnp.minimum(j0 + per_split, chunks), body,
+                            jnp.zeros(o_ref.shape, jnp.float32))
+    o_ref[...] = acc
+
+
+def _qmatvec_kernel(x: jax.Array, ql: QuantLinear, plan: dict,
+                    compute_dtype) -> jax.Array:
+    """x [B, K] logical order -> [B, N] f32 through _qmv_kernel."""
+    n, k = ql.array_shape
+    b = x.shape[0]
+    bn, ks, bp = plan["bn"], plan["k_splits"], plan["bp"]
+    segs, kbl = _lane_view(k)
+    halves = 2 if ql.fmt == "q8_0" else 1
+    # one row stays f32 (CUDA-core multiply-add); tiles feed the MMA in
+    # compute_dtype
+    x_dtype = jnp.float32 if bp == 1 else compute_dtype
+    x4 = (jnp.pad(permute_activations(x.astype(jnp.float32)),
+                  ((0, bp - b), (0, 0))).T.astype(x_dtype)
+          .reshape(2 * segs, _R, kbl, bp))
+    qs = ql.qs.reshape(n, halves * segs, _R, kbl)
+    if ql.fmt == "q4_k":
+        s1, s2 = ql.es, ql.em
+    else:
+        s1 = s2 = ql.d
+    s1, s2 = s1.reshape(n, segs, kbl), s2.reshape(n, segs, kbl)
+    out = pl.pallas_call(
+        functools.partial(_qmv_kernel, fmt=ql.fmt, segs=segs, kbl=kbl,
+                          cc=plan["cc"], chunks=plan["chunks"],
+                          per_split=plan["chunks_per_split"],
+                          compute_dtype=compute_dtype),
+        out_shape=jax.ShapeDtypeStruct((ks, n, bp), jnp.float32),
+        grid=(n // bn, ks),
+        in_specs=[
+            pl.BlockSpec(x4.shape, lambda i, j: (0, 0, 0, 0)),
+            pl.BlockSpec((bn, halves * segs, _R, kbl),
+                         lambda i, j: (i, 0, 0, 0)),
+            pl.BlockSpec((bn, segs, kbl), lambda i, j: (i, 0, 0)),
+            pl.BlockSpec((bn, segs, kbl), lambda i, j: (i, 0, 0)),
+        ],
+        out_specs=pl.BlockSpec((None, bn, bp), lambda i, j: (j, i, 0)),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=NUM_STAGES),
+        interpret=platform.interpret(),
+        name=f"qmatvec_{ql.fmt}",
+    )(x4, qs, s1, s2)
+    return out.sum(axis=0)[:, :b].T
+
+
+def choose_impl(ql: QuantLinear, rows: int, impl: str | None = None,
+                block_n: int | None = None) -> str:
+    """The op choice: the kernel for kernel formats at up to
+    KERNEL_MAX_ROWS rows on the card (or when asked for), XLA otherwise.
+    Asking for the kernel on a shape it cannot tile is an error."""
+    n, k = ql.array_shape
+    fits = (ql.fmt in KERNEL_FMTS
+            and kernel_plan(n, k, rows, block_n)["ok"])
+    default = GPU_IMPL if (fits and rows <= KERNEL_MAX_ROWS) else "xla"
+    impl = platform.resolve_impl(impl, default, ("kernel", "xla"))
+    if impl == "kernel" and not fits:
+        raise ValueError(f"no kernel tiling for {ql.fmt} [{n}, {k}] at "
+                         f"{rows} rows")
+    return impl
+
+
+@functools.partial(
+    jax.jit,
+    static_argnames=("compute_dtype", "out_dtype", "x_quant8", "impl",
+                     "block_n", "k_splits"),
+)
+def qmatmul(
+    x: jax.Array,
+    ql: QuantLinear,
+    *,
+    compute_dtype=jnp.bfloat16,
+    out_dtype=None,
+    x_quant8: bool = False,
+    impl: str | None = None,
+    block_n: int | None = None,
+    k_splits: int | None = None,
+) -> jax.Array:
+    """y[B, N] = x[B, K] @ dequant(W[N, K])^T; x in logical order.
+
+    ``impl``: "kernel" (the fused Triton matvec), "xla" (dequantize + dot)
+    or None (``choose_impl``). ``x_quant8``: fake-quantize x per 32-block
+    to int8 first (llama.cpp's Q4_K x Q8 decode numerics) on every path.
+    """
+    n, k = ql.array_shape
+    b = x.shape[0]
+    assert x.shape[1] == k, f"x K={x.shape[1]} vs weight K={k}"
+    out_dtype = out_dtype or x.dtype
+    if x_quant8:
+        x = fake_quant8(x)
+    impl = choose_impl(ql, b, impl, block_n)
+    if impl == "xla":
+        return qmatmul_xla(x, ql, compute_dtype).astype(out_dtype)
+    plan = kernel_plan(n, k, b, block_n, k_splits)
+    assert plan["ok"], plan
+    y = _qmatvec_kernel(x, scales_to_e(ql), plan, compute_dtype)
+    return y.astype(out_dtype)

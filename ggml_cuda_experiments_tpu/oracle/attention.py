@@ -1,6 +1,6 @@
 """Reference (oracle) attention math in pure NumPy.
 
-TPU-native analog of the reference's CPU oracle:
+The analog of the reference's CPU oracle:
 - ``mulmat_ref``        ~ ``mulmat_cpu`` (/root/reference/src/utils.h:5-28),
   including the optional fp16-faithful round-trip of the A operand
   (utils.h:10-11) and the fused ``*scale + mask`` epilogue.
@@ -15,7 +15,7 @@ TPU-native analog of the reference's CPU oracle:
   kernel_test.h:25-27,53).
 
 Everything is float64-free on purpose: the oracle runs in float32 (optionally
-simulating bf16 operand rounding) so tolerances reflect what the TPU kernels
+simulating bf16 operand rounding) so tolerances reflect what the device kernels
 can actually achieve.
 """
 
@@ -29,8 +29,8 @@ def _round_through(x: np.ndarray, dtype) -> np.ndarray:
 
     The analog of the reference oracle's fp16 round-trip of the A operand
     (utils.h:10-11) that makes the CPU result bit-comparable with tensor-core
-    math. On TPU the MXU consumes bf16, so the default faithful dtype is
-    bfloat16.
+    math. The kernels here feed bf16 to the tensor cores, so the default
+    faithful dtype is bfloat16.
     """
     if dtype is None:
         return np.asarray(x, np.float32)
@@ -53,7 +53,7 @@ def mulmat_ref(
     ``b_transposed`` means B is stored [N, K] and used as B^T, matching the
     reference's "matrix B transposed" overload (utils.h:5-16).
     ``operand_dtype`` optionally rounds both operands through a narrow dtype
-    first (bf16 for MXU-faithful comparison).
+    first (bf16 for tensor-core-faithful comparison).
     """
     a = _round_through(a, operand_dtype)
     b = _round_through(b, operand_dtype)
@@ -110,7 +110,7 @@ def attention_ref(
 ) -> np.ndarray:
     """Full multi-head attention oracle with GQA broadcast.
 
-    Shapes (TPU-native layout, batch-first):
+    Shapes (batch-first layout):
         q:    [B, Hq,  Sq, D]
         k, v: [B, Hkv, Sk, D]
         mask: broadcastable to [B, Hq, Sq, Sk] (additive, -inf for masked)

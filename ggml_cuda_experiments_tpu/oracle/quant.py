@@ -6,9 +6,9 @@ dequantization fused into matmul/matvec. This module is the *oracle*: it
 defines the exact quantize/dequantize semantics that the Pallas kernels in
 ``ops/quant_matmul.py`` must reproduce bit-for-bit at dequant time.
 
-Layout choice (TPU-first, struct-of-arrays):
+Layout choice (struct-of-arrays):
 GGML stores arrays of per-block C structs (34-byte blocks etc.). Interleaved
-structs are hostile to XLA/TPU tiling, so we store each field as its own
+structs are hostile to XLA tiling and vector loads, so we store each field as its own
 dense array ("planar" layout) with identical numerical semantics:
 
 - Q8_0  (32-elem blocks, 8-bit):      qs int8  [..., N]
@@ -26,7 +26,7 @@ dense array ("planar" layout) with identical numerical semantics:
 Nibble packing is per-32-block planar, like GGML's Q4_0 (byte j of a block
 holds element j in the low nibble and element j+16 in the high nibble): a
 block's 32 values unpack with one reshape + two masks + one concat — no
-cross-lane shuffles on the VPU.
+cross-element shuffles.
 
 Dequant formulas (the contract the kernels implement):
     Q8_0:  x = d * q                        q in [-127, 127]

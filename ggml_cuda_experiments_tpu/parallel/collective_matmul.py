@@ -1,13 +1,13 @@
-"""Collective matmul: all-gather / reduce-scatter decomposed into ICI ring
+"""Collective matmul: all-gather / reduce-scatter decomposed into ring
 hops overlapped with per-chunk partial GEMMs.
 
 The BASELINE.json north star calls for "all-gather/reduce-scatter
 collectives overlapped with Pallas compute". A monolithic ``all_gather``
 serializes: comm, then the full dot. Decomposing it into a ring
 (`jax.lax.ppermute`, the same point-to-point primitive the context-parallel
-ring attention uses, parallel/ring_attention.py) lets hop s+1 ride the ICI
-links while the MXU multiplies chunk s — the communication disappears under
-compute whenever a chunk's dot time exceeds a hop. This is the standard TPU
+ring attention uses, parallel/ring_attention.py) lets hop s+1 ride the
+NVLink links while the tensor cores multiply chunk s — the communication disappears under
+compute whenever a chunk's dot time exceeds a hop. This is the standard
 "collective matmul" / Megatron-SP pattern (PAPERS.md: overlap-collectives);
 the reference repo has no analog — its only multi-device code merges on the
 host (/root/reference/src/misc/simpleMultiGPU.cu:155-190).

@@ -21,10 +21,10 @@ Sequence-shard convention (block-contiguous, owner-writes):
     decode   the new token's KV appends to the LAST seq shard (offset
              T_loc + step); every shard computes an (O, M, S) partial over
              its local KV and lse_combine_axis merges — O(D) bytes per
-             query over ICI instead of gathering the cache.
+             query over the interconnect instead of gathering the cache.
 
 The reference is single-process (SURVEY §2.3); all five axes here are new
-capability, built on XLA collectives over ICI/DCN.
+capability, built on XLA collectives (NCCL on the GPU).
 """
 
 from __future__ import annotations
@@ -54,8 +54,8 @@ def make_full_mesh(n_devices: int, sizes: dict[str, int] | None = None
 
     Without explicit ``sizes``, n's prime factors are dealt round-robin to
     (model, pipe, seq, expert, data) — model first so tensor-parallel
-    collectives land on the fastest (innermost/ICI-adjacent) axis, data
-    last (it needs no forward-pass collectives so DCN suffices).
+    collectives land on the fastest (innermost, NVLink-joined) axis, data
+    last (it needs no forward-pass collectives, so a slower link suffices).
     """
     if sizes is None:
         sizes = dict.fromkeys(AXES, 1)

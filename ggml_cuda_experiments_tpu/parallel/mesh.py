@@ -5,10 +5,10 @@ Axes:
 - ``model``: tensor parallelism — attention heads / MLP intermediate
   sharded ("Megatron"-style column/row parallel); one psum per block.
 
-On real hardware the mesh should map ``model`` to the ICI-adjacent axis
-(collectives per token ride ICI) and ``data`` across hosts/DCN — that is
-jax's default device order for `mesh_utils`-less construction on a slice;
-multi-host layouts can pass an explicit device array.
+On real hardware the mesh should map ``model`` to the cards of one host
+(the per-token collectives ride NVLink, which joins a host's cards all to
+all) and ``data`` across hosts; multi-host layouts can pass an explicit
+device array.
 """
 
 from __future__ import annotations

@@ -1,16 +1,16 @@
-"""Multi-host pod execution: DCN-aware meshes and cross-host serving.
+"""Multi-host pod execution: host-aware meshes and cross-host serving.
 
-BASELINE.json config 5: 70B-class models tensor-sharded over ICI within each
-host and scaled across hosts over DCN. The reference has nothing remotely
+BASELINE.json config 5: 70B-class models tensor-sharded over NVLink within each
+host and scaled across hosts over the network. The reference has nothing remotely
 comparable (its only multi-device code is single-process,
 /root/reference/src/misc/simpleMultiGPU.cu); this module provides the
-TPU-native structure:
+structure:
 
 - ``init_distributed``      jax.distributed bootstrap (one process per host)
 - ``make_pod_mesh``         (data, model) mesh with ``model`` confined to
-                            each host's ICI-connected chips and ``data``
-                            spanning hosts over DCN — so the per-token
-                            psums of tensor parallelism never cross DCN,
+                            each host's NVLink-joined cards and ``data``
+                            spanning hosts — so the per-token psums of
+                            tensor parallelism never leave a host,
                             and the only inter-host traffic is batch
                             dispatch (scaling-efficiency critical, see
                             SURVEY §5 "distributed communication backend")
@@ -54,7 +54,7 @@ def init_distributed(coordinator_address: str | None = None,
 
 
 def group_devices_by_process(devices=None) -> dict[int, list]:
-    """Stable process_index -> devices map (ICI domains)."""
+    """Stable process_index -> devices map (one fast-interconnect domain per host)."""
     devices = list(devices if devices is not None else jax.devices())
     groups: dict[int, list] = {}
     for d in devices:
@@ -68,7 +68,7 @@ def make_pod_mesh(model_parallel: int | None = None, devices=None) -> Mesh:
     ``model_parallel`` defaults to all chips of one host (full intra-host
     tensor parallelism). The data axis enumerates (host, chip-group) pairs,
     so data-parallel traffic — none during a forward pass — is the only
-    thing that would ride DCN.
+    thing that would cross hosts.
     """
     groups = group_devices_by_process(devices)
     per_host = {p: len(ds) for p, ds in groups.items()}
@@ -95,7 +95,7 @@ class HostShardedEngine:
     The global serving capacity is the union of per-host batches; because
     admission/eviction is host-local, no scheduler synchronization sits on
     the decode path (the 80%-scaling-efficiency requirement is then purely
-    about weight/Kv sharding, which ``make_pod_mesh`` keeps off DCN).
+    about weight/Kv sharding, which ``make_pod_mesh`` keeps inside a host).
 
     This class wires the pieces; on a real pod each process constructs it
     with the same arguments and serves its own request stream (a front-end

@@ -1,7 +1,7 @@
 """Pipeline parallelism: layer stages over a ``pipe`` mesh axis.
 
 The reference is single-process (SURVEY §2.3); this covers the ``pp`` axis
-of the driver's parallelism contract, TPU-style:
+of the driver's parallelism contract, as one SPMD program:
 
 - **Stage sharding is array sharding.** Every per-layer weight is stacked
   with a leading ``n_layers`` dim and sharded ``P("pipe")`` — stage s holds
@@ -12,7 +12,7 @@ of the driver's parallelism contract, TPU-style:
 - **GPipe-style microbatching with `ppermute` handoff.** The batch splits
   into M microbatches; at pipeline step t, stage s runs microbatch t-s
   through its local layers and `ppermute`s activations to stage s+1 (a
-  point-to-point ICI hop — the XLA analog of a NCCL send). Bubble steps
+  point-to-point hop — an NCCL send under XLA). Bubble steps
   (t-s outside [0, M)) compute on garbage but their cache writes are
   masked out (``valid``) and their outputs discarded.
 - Works for prefill (flash-attention) and decode (split-KV flash decode),
@@ -20,7 +20,7 @@ of the driver's parallelism contract, TPU-style:
   (``expert_axis``) composing inside the stage body.
 
 Efficiency: pipeline utilization is M/(M+P-1); decode latency-bound serving
-normally runs pp only across hosts where tp would leave ICI (the classic
+normally runs pp only across hosts where tp would leave NVLink (the classic
 7B-fits-on-a-chip case needs neither). This module makes pp available and
 correct; the mesh layout chooses when to use it.
 """

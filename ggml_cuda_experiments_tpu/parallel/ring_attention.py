@@ -6,9 +6,9 @@ The multi-chip extension of the reference's core idea (SURVEY §2.3 item 3,
 (/root/reference/src/flash_row_float.h:191-198, 429-471) become, across
 chips,
 
-- prefill: KV shards ROTATE around the ICI ring (jax.lax.ppermute) while
-  each chip runs the single-chip flash-attention kernel on the block in
-  front of it, folding per-step partials with the same ``lse_combine`` —
+- prefill: KV shards ROTATE around the device ring (jax.lax.ppermute) while
+  each chip runs the single-device attention on the block in front of
+  it, folding per-step partials with the same ``lse_combine`` —
   communication overlapped with compute, point-to-point only (boom guide
   §16);
 - decode: each chip computes a partial over its local KV shard
@@ -25,7 +25,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from ggml_cuda_experiments_tpu.ops.flash_attention import flash_attention
+from ggml_cuda_experiments_tpu.ops.attention import attention
 from ggml_cuda_experiments_tpu.ops.flash_decode import flash_decode
 from ggml_cuda_experiments_tpu.ops.lse import (
     AttnPartial, lse_combine, lse_combine_axis, lse_finalize,
@@ -50,9 +50,6 @@ def ring_attention(
     *,
     causal: bool = False,
     scale: float | None = None,
-    block_q: int = 128,
-    block_k: int = 128,
-    interpret: bool | None = None,
 ) -> jax.Array:
     """Ring attention over sequence-sharded Q/K/V (call inside shard_map).
 
@@ -83,10 +80,8 @@ def ring_attention(
             mask = mask[None, None]
         else:
             mask = None
-        o, lse = flash_attention(
-            q, k_blk, v_blk, mask, scale=scale, block_q=block_q,
-            block_k=block_k, return_residuals=True, interpret=interpret,
-        )
+        o, lse = attention(q, k_blk, v_blk, mask, scale=scale,
+                           return_residuals=True)
         acc = lse_combine(acc, _partial_from_residuals(o, lse))
         if step != n - 1:
             # rotate: send our current block to the right neighbor while
@@ -105,13 +100,12 @@ def ulysses_attention(
     *,
     causal: bool = False,
     scale: float | None = None,
-    interpret: bool | None = None,
 ) -> jax.Array:
     """Ulysses-style sequence parallelism (call inside shard_map).
 
     The alternative to ring attention (SURVEY §5): activations arrive
     sequence-sharded [B, H, S_loc, D]; two all-to-alls re-shard heads<->
-    sequence so each chip runs the plain flash kernel on ALL positions of
+    sequence so each device runs plain attention on ALL positions of
     H/n heads, then shard back. Two collectives of O(local activations)
     instead of N-1 ppermutes of KV — wins when H/n >= 1 and the sequence is
     short relative to head count; ring wins for very long context.
@@ -126,8 +120,7 @@ def ulysses_attention(
                                   tiled=True)
 
     q2, k2, v2 = to_heads(q), to_heads(k), to_heads(v)
-    o2 = flash_attention(q2, k2, v2, causal=causal, scale=scale,
-                         interpret=interpret)
+    o2 = attention(q2, k2, v2, causal=causal, scale=scale)
     # back to sequence sharding: split sequence, concat heads
     return jax.lax.all_to_all(o2, axis_name, split_axis=2, concat_axis=1,
                               tiled=True)
@@ -141,9 +134,9 @@ def decode_context_parallel(
     axis_name: str,
     *,
     scale: float | None = None,
-    kv_splits: int = 1,
-    block_k: int = 256,
-    interpret: bool | None = None,
+    kv_splits: int | None = None,
+    block_k: int | None = None,
+    impl: str | None = None,
 ) -> jax.Array:
     """Context-parallel single-token decode (call inside shard_map).
 
@@ -154,7 +147,7 @@ def decode_context_parallel(
     part = flash_decode(
         q, k_shard, v_shard, lengths_local, scale=scale,
         kv_splits=kv_splits, block_k=block_k, return_partial=True,
-        interpret=interpret,
+        impl=impl,
     )
     merged = lse_combine_axis(part, axis_name)
     return lse_finalize(merged, out_dtype=q.dtype)

@@ -3,10 +3,10 @@ mesh.
 
 Megatron-style sharding, chosen for GQA co-location (boom guide §14): each
 ``model`` shard owns ``n_kv_heads / n_model`` KV heads together with their
-whole GQA group of query heads, so attention (prefill AND decode, both
-Pallas kernels) runs with ZERO communication; the only collectives in the
+whole GQA group of query heads, so attention (prefill AND decode, kernel
+or plain path) runs with ZERO communication; the only collectives in the
 forward pass are one psum after the attention output projection and one
-after the MLP down projection (row-parallel contractions), riding ICI.
+after the MLP down projection (row-parallel contractions), riding NVLink.
 
 Layout per layer (N = out features, K = in features; all weights [N, K]):
     wq/wk/wv    column-parallel  P("model", None)   heads sharded
@@ -58,7 +58,7 @@ def _linear_spec(w, axis: int):
     if isinstance(w, QuantLinear):
         sub = P("model", None) if axis == 0 else P(None, "model")
         return QuantLinear(
-            fmt=w.fmt, shape=w.shape, layout=w.layout, enc=w.enc,
+            fmt=w.fmt, shape=w.shape, enc=w.enc,
             qs=sub,
             d=None if w.d is None else sub,
             es=None if w.es is None else sub,
@@ -119,8 +119,7 @@ def shard_quant_linear(w: np.ndarray, fmt: str, k_shards: int) -> QuantLinear:
         vals = [getattr(p, field) for p in parts]
         if vals[0] is None:
             return None
-        # K-concat axis: 1 for 2-D fields, 2 for the 'sub' payload layout
-        return jnp.concatenate(vals, axis=vals[0].ndim - 1)
+        return jnp.concatenate(vals, axis=1)
 
     return QuantLinear(fmt=fmt, shape=(n, k), enc=parts[0].enc,
                        qs=cat("qs"), d=cat("d"),

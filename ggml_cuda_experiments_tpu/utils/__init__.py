@@ -1,6 +1,6 @@
-"""Runtime utilities: platform detection, tensor I/O, harness, benchmarking."""
+"""Runtime utilities: backend choice, tensor I/O, harness, benchmarking."""
 
 from ggml_cuda_experiments_tpu.utils.platform import (
-    interpret_default,
-    on_tpu,
+    backend,
+    resolve_impl,
 )

@@ -16,7 +16,7 @@ import time
 
 import jax
 
-from ggml_cuda_experiments_tpu.utils.device_info import chip_spec
+from ggml_cuda_experiments_tpu.utils.device_info import chip_spec, has_spec
 
 
 @dataclasses.dataclass
@@ -46,13 +46,18 @@ class BenchResult:
                         ) / spec.peak_flops_bf16
 
     def report(self) -> str:
+        """One line; roofline shares only on a device with published
+        peaks (a CPU time is never written against a device peak)."""
         parts = [f"{self.name}: {self.seconds_per_iter*1e3:.3f} ms/iter"]
+        peaks = has_spec()
         if self.bytes_per_iter:
-            parts.append(f"{self.gbytes_per_s:.1f} GB/s "
-                         f"({self.roofline_bw_pct():.1f}% HBM roofline)")
+            parts.append(f"{self.gbytes_per_s:.1f} GB/s")
+            if peaks:
+                parts.append(f"({self.roofline_bw_pct():.1f}% HBM peak)")
         if self.flops_per_iter:
-            parts.append(f"{self.tflops:.2f} TFLOP/s "
-                         f"({self.roofline_flops_pct():.1f}% MXU roofline)")
+            parts.append(f"{self.tflops:.2f} TFLOP/s")
+            if peaks:
+                parts.append(f"({self.roofline_flops_pct():.1f}% bf16 peak)")
         return "  ".join(parts)
 
 

@@ -3,7 +3,7 @@
 The analog of the reference's eyeball-diff loops (worst-index max-abs-diff
 reporting in /root/reference/src/kernel_test.h:215-234 and
 /root/reference/src/flash-matrix.cu:265-337) — upgraded with actual
-assertions, per SURVEY.md §4's "implications for the TPU build".
+assertions, per SURVEY.md §4's "implications for the build".
 """
 
 from __future__ import annotations

@@ -150,8 +150,6 @@ def _flatten(prefix: str, node, out: dict[str, np.ndarray]) -> None:
         fmt = node.fmt
         if getattr(node, "enc", "e") not in ("e", ""):
             fmt = f"{fmt}~{node.enc}"
-        if node.layout != "std":
-            fmt = f"{fmt}+{node.layout}"
         base = f"{prefix}#{fmt}#{n}x{k}"
         for f in _QFIELDS:
             a = getattr(node, f)
@@ -206,9 +204,12 @@ def load_params(path, mesh=None, lazy: bool = True) -> dict[str, Any]:
         if "#" in name:
             prefix, fmt, shape_s, field = name.split("#")
             fmt, _, layout = fmt.partition("+")
+            if layout not in ("", "std"):
+                raise ValueError(f"{name}: column layout {layout!r} is not "
+                                 "supported (re-export the weights)")
             fmt, _, enc = fmt.partition("~")
             q = quants.setdefault(prefix, {
-                "fmt": fmt, "layout": layout or "std", "enc": enc or "e",
+                "fmt": fmt, "enc": enc or "e",
                 "shape": tuple(int(v) for v in shape_s.split("x"))})
             q[field] = arr
         else:
@@ -216,8 +217,7 @@ def load_params(path, mesh=None, lazy: bool = True) -> dict[str, Any]:
     import jax.numpy as jnp
     for prefix, q in quants.items():
         ql = QuantLinear(
-            fmt=q["fmt"], shape=q["shape"], layout=q.get("layout", "std"),
-            enc=q.get("enc", "e"),
+            fmt=q["fmt"], shape=q["shape"], enc=q.get("enc", "e"),
             qs=jnp.asarray(q["qs"]),
             d=jnp.asarray(q["d"]) if "d" in q else None,
             es=jnp.asarray(q["es"]) if "es" in q else None,

@@ -1,22 +1,26 @@
 """ctypes bindings for the native C++ runtime layer (native/gct_native.cpp).
 
 Block-quant encode/decode in multithreaded C++, bit-identical to the NumPy
-oracle (enforced by tests/test_native.py). Falls back to the oracle when the
-shared library hasn't been built (``make -C native``).
+oracle (enforced by tests/test_native.py). The shared library is built from
+``native/*.cpp`` with ``make -C native`` at first use; the codec falls back
+to the NumPy oracle only when no C++ compiler is present.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import os
+import subprocess
 from pathlib import Path
 
 import numpy as np
 
 from ggml_cuda_experiments_tpu.oracle import quant as quant_ref
 
-_LIB_PATH = Path(__file__).resolve().parents[2] / "native" / "libgct_native.so"
+_NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
+_LIB_PATH = _NATIVE_DIR / "libgct_native.so"
 
 _i64 = ctypes.c_int64
 _int = ctypes.c_int
@@ -25,11 +29,37 @@ _i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
 _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 
 
+def _stale() -> bool:
+    src = max(p.stat().st_mtime for p in _NATIVE_DIR.glob("*.cpp"))
+    return not _LIB_PATH.exists() or _LIB_PATH.stat().st_mtime < src
+
+
+def lib_path() -> Path | None:
+    """Path of the built library, building it first if it is missing or
+    older than its sources. Concurrent callers (test workers) serialize on
+    a lock file; the build writes a temporary name and renames it, so no
+    process ever loads a half-written library. None when the build fails
+    (no compiler)."""
+    if not _stale():
+        return _LIB_PATH
+    with open(_NATIVE_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if _stale():
+            tmp = f"{_LIB_PATH.name}.partial"
+            r = subprocess.run(["make", "-s", "-C", str(_NATIVE_DIR),
+                                f"LIB={tmp}"], capture_output=True)
+            if r.returncode != 0:
+                return None
+            os.replace(_NATIVE_DIR / tmp, _LIB_PATH)
+    return _LIB_PATH
+
+
 @functools.cache
 def _lib():
-    if not _LIB_PATH.exists():
+    path = lib_path()
+    if path is None:
         return None
-    lib = ctypes.CDLL(str(_LIB_PATH))
+    lib = ctypes.CDLL(str(path))
     lib.gct_version.restype = ctypes.c_int
     lib.gct_quantize_q8_0.argtypes = [_f32p, _i8p, _f32p, _i64, _i64, _int]
     lib.gct_quantize_q4_0.argtypes = [_f32p, _u8p, _f32p, _i64, _i64, _int]

@@ -2,20 +2,18 @@
 (native/gct_sched.cpp).
 
 Decision-identical to the Python reference scheduler in models/engine.py
-(enforced by tests/test_native_sched.py); the engine uses it when the
-shared library is built (``make -C native``) and ``scheduler="native"``.
+(enforced by tests/test_native_sched.py); the engine uses it with
+``scheduler="native"``. The library is built on first use (utils/native.py).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from pathlib import Path
 
 import numpy as np
 
-_LIB_PATH = Path(__file__).resolve().parents[2] / "native" / \
-    "libgct_native.so"
+from ggml_cuda_experiments_tpu.utils.native import lib_path
 
 _int = ctypes.c_int
 _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
@@ -24,9 +22,10 @@ _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 
 @functools.cache
 def _lib():
-    if not _LIB_PATH.exists():
+    path = lib_path()
+    if path is None:
         return None
-    lib = ctypes.CDLL(str(_LIB_PATH))
+    lib = ctypes.CDLL(str(path))
     if not hasattr(lib, "gct_sched_new"):
         return None                     # stale build without the scheduler
     lib.gct_sched_new.restype = ctypes.c_void_p

@@ -8,7 +8,7 @@ Wire-compatible with the reference's ``load_tensor_from_file``
 
 so golden tensors dumped from llama.cpp (as the reference does in
 /root/reference/src/flash-matrix.cu:69-73) can be loaded directly. We add the
-writer (the reference has none), a bf16 code (2) for TPU-native dumps, and
+writer (the reference has none), a bf16 code (2) for bf16 device dumps, and
 int8 (3) for quantized payloads.
 """
 

@@ -2,7 +2,7 @@
 //
 // The reference implements its whole runtime in native code (C++/CUDA,
 // /root/reference/src/utils.h: tensor container + binary reader, CPU
-// oracle). On TPU the *compute* path is Pallas/XLA, but the runtime around
+// oracle). Here the *compute* path is JAX (XLA and Pallas kernels), but the runtime around
 // it — weight-file I/O and block-quant encode/decode for the loader — is
 // native here too: multithreaded C++ exposed via ctypes
 // (utils/native.py), with semantics bit-identical to the NumPy oracle

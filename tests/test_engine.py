@@ -64,19 +64,49 @@ def test_admission_when_pages_scarce(params, rng):
         assert out[rid] == want, f"req {rid}: {out[rid]} vs {want}"
 
 
-@pytest.mark.parametrize("fmt", ["int8", "fp8"])
-def test_quantized_kv_engine_runs(params, rng, fmt):
+@pytest.mark.parametrize("fmt,tol", [("int8", 3e-2), ("fp8", 1e-1)])
+def test_quantized_kv_engine_runs(params, rng, fmt, tol):
+    """The engine serves a request from an int8 / fp8 page pool, and the
+    pool's per-step logits stay within the format's error of the bf16
+    contiguous cache when both are driven by the same tokens. Greedy tokens
+    are not compared past the first: random weights leave near-ties that
+    any KV rounding may flip. Tolerances: the largest per-element rounding
+    step, 1/127 for int8 and 1/16 for e4m3's 3-bit mantissa, grown by the
+    two layers (measured ~1.5% / ~4.8%)."""
+    from ggml_cuda_experiments_tpu.models.engine import (
+        PagedKVPool, paged_decode_step, paged_prefill)
+
     prompt = rng.integers(0, CFG.vocab_size, size=10).tolist()
     eng = Engine(params, CFG, max_batch=2, page_size=32, n_pages=64,
                  max_seq_len=256, quantized_kv=fmt)
     rid = eng.add_request(prompt, max_new_tokens=5)
     out = eng.run_to_completion()
     assert len(out[rid]) == 5
-    # quantized KV shifts logits slightly; token-level agreement with the
-    # bf16 reference is expected for most but not necessarily all steps
-    want = _ref_generate(params, prompt, 5)
-    agree = sum(a == b for a, b in zip(out[rid], want))
-    assert agree >= 3, f"{out[rid]} vs {want}"
+    # the first token comes from prefill over fresh bf16 K/V: exact
+    assert out[rid][0] == _ref_generate(params, prompt, 1)[0]
+
+    forced = rng.integers(0, CFG.vocab_size, size=4).astype(np.int32)
+    pool = PagedKVPool.create(CFG, 9, 32, quantized=fmt)
+    row = np.arange(8, dtype=np.int32)
+    toks = np.zeros((1, 16), np.int32)
+    toks[0, :10] = prompt
+    lg, pool = paged_prefill(params, CFG, jnp.asarray(toks),
+                             jnp.asarray(10, jnp.int32), jnp.asarray(row),
+                             pool)
+    got = [np.asarray(lg)[0]]
+    cache = llama.KVCache.create(CFG, 1, 256)
+    lg, cache = llama.prefill(params, CFG, jnp.asarray([prompt]), cache)
+    want = [np.asarray(lg)[0]]
+    for i, t in enumerate(forced):
+        lg, pool = paged_decode_step(
+            params, CFG, jnp.asarray([t]), jnp.asarray([10 + i], jnp.int32),
+            jnp.asarray(row[None]), pool, jnp.asarray([True]))
+        got.append(np.asarray(lg)[0])
+        lg, cache = llama.decode_step(params, CFG, jnp.asarray([t]), cache)
+        want.append(np.asarray(lg)[0])
+    got, want = np.stack(got), np.stack(want)
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err < tol, f"{fmt} pool logits rel err {err}"
 
 
 def test_tensor_parallel_engine_matches_single(params, rng):
@@ -86,6 +116,10 @@ def test_tensor_parallel_engine_matches_single(params, rng):
     from ggml_cuda_experiments_tpu.parallel import tp
     from ggml_cuda_experiments_tpu.parallel.mesh import make_mesh
 
+    # f32 weights: bf16 logits of this random model tie exactly at some
+    # steps, and a tie is broken by reduction order (the psum-split wo /
+    # w_down products sum in another order than the single-device dot)
+    params = llama.init_weights(CFG, seed=11, dtype=jnp.float32)
     mesh = make_mesh(model=2, data=1)
     prompts = [rng.integers(0, CFG.vocab_size, size=n).tolist()
                for n in (7, 11)]
@@ -121,7 +155,7 @@ def test_tensor_parallel_engine_quantized_weights(params, rng):
     # encoding from quantize_params_sharded is only decodable once sliced
     # by shard_map; its dequantized VALUES are identical because shard cuts
     # align to block bounds)
-    gq = llama.quantize_params(params, "q4_0", pad_intermediate=False)
+    gq = llama.quantize_params(params, "q4_0")
     eng_ref = Engine(gq, CFG, max_batch=2, page_size=32, n_pages=64,
                      max_seq_len=256, quantized_kv=True)
     rid0 = eng_ref.add_request(prompt, max_new_tokens=4)

@@ -4,7 +4,7 @@ a large summation sharded by range across devices, per-device partial
 reduction, merged, and checked against the CPU at rel-diff < 1e-5 (the
 reference's gate, simpleMultiGPU.cu:205-218).
 
-TPU-native twist: the merge rides the ICI collective (``psum`` under
+The twist: the merge rides a device collective (``psum`` under
 ``shard_map``) instead of the reference's host-side loop — both variants
 are tested and must agree."""
 

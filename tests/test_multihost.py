@@ -32,8 +32,9 @@ def test_group_by_process():
 
 
 def test_pod_mesh_model_axis_stays_on_host():
-    """Every model-axis row of the mesh must live inside one host (ICI);
-    crossing hosts on the model axis would put per-token psums on DCN."""
+    """Every model-axis row of the mesh must live inside one host (NVLink);
+    crossing hosts on the model axis would put per-token psums on the
+    inter-host network."""
     devs = _pod(4, 8)
     mesh_arr = np.array([
         row for p, ds in multihost.group_devices_by_process(devs).items()
@@ -69,7 +70,7 @@ def test_uneven_hosts_rejected():
 
 def test_real_two_process_distributed_run():
     """EXECUTE the multihost layer under an actual 2-process
-    ``jax.distributed`` bootstrap (round-4): tools/multihost_run.py spawns
+    ``jax.distributed`` bootstrap: tools/multihost_run.py spawns
     two OS processes x 4 virtual CPU devices each, runs init_distributed
     -> make_pod_mesh -> a cross-process psum -> the global-mesh TP step
     (children's shard checksums vs the single-process reference) ->
@@ -77,9 +78,11 @@ def test_real_two_process_distributed_run():
     controllers' claim is an executed fact, not an argument."""
     import subprocess
     import sys
+    from pathlib import Path
 
     r = subprocess.run(
-        [sys.executable, "/root/repo/tools/multihost_run.py"],
+        [sys.executable, str(Path(__file__).resolve().parents[1] / "tools"
+                             / "multihost_run.py")],
         capture_output=True, text=True, timeout=840)
     assert r.returncode == 0, (r.stdout[-2000:], r.stderr[-2000:])
     assert "logits vs single-process reference: OK" in r.stdout

@@ -1,8 +1,10 @@
-"""Fused dequant-matmul kernels vs the quantization oracle.
+"""Quantized linears vs the quantization oracle.
 
-The correctness contract: qmatmul (Pallas, fused dequant) == x @ dequant^T
-computed entirely by the NumPy oracle — dequantization must be bit-identical,
-so the only difference is matmul accumulation order (fp32, tiny)."""
+The correctness contract: qmatmul == x @ dequant^T computed entirely by the
+NumPy oracle — dequantization must be bit-identical, so the only difference
+is accumulation order (f32) or bf16 operand rounding. The fused Triton
+matvec runs in Pallas' interpreter here (impl="kernel"); the plain path is
+impl="xla"."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -69,7 +71,7 @@ def test_q4_k_e_encoding_close_to_ggml(rng):
 @pytest.mark.parametrize("fmt", FMTS)
 @pytest.mark.parametrize("batch", [1, 8])
 def test_qmatmul_fused_f32(rng, fmt, batch):
-    """compute_dtype=f32: result must match the oracle to accumulation
+    """compute_dtype=f32: the kernel matches the oracle to accumulation
     error only (dequant itself is bit-exact)."""
     n, k = 256, 1024
     w = rng.normal(size=(n, k)).astype(np.float32)
@@ -77,15 +79,16 @@ def test_qmatmul_fused_f32(rng, fmt, batch):
     t = quant_ref.FORMATS[fmt][0](w)
     ql = qm.from_oracle(t)
     want = x @ _device_dequant_ref(fmt, t).T
-    got = qm.qmatmul(jnp.asarray(x), ql, block_n=128,
+    got = qm.qmatmul(jnp.asarray(x), ql, block_n=128, impl="kernel",
                      compute_dtype=jnp.float32)
     assert_close(got, want, atol=5e-3, rtol=5e-3, name=f"qmatmul {fmt} B={batch}")
 
 
 @pytest.mark.parametrize("fmt", FMTS)
-@pytest.mark.parametrize("batch,vpu", [(1, True), (1, False), (8, False)])
-def test_qmatmul_fused_bf16_default(rng, fmt, batch, vpu):
-    """Default bf16 compute (MXU-native / VPU matvec): f16-level accuracy,
+@pytest.mark.parametrize("batch,impl", [(1, "kernel"), (8, "kernel"),
+                                        (1, "xla")])
+def test_qmatmul_fused_bf16_default(rng, fmt, batch, impl):
+    """Default bf16 compute (tensor-core operands): f16-level accuracy,
     like the reference's fp16 WMMA dequant path."""
     n, k = 256, 1024
     w = rng.normal(size=(n, k)).astype(np.float32)
@@ -93,11 +96,11 @@ def test_qmatmul_fused_bf16_default(rng, fmt, batch, vpu):
     t = quant_ref.FORMATS[fmt][0](w)
     ql = qm.from_oracle(t)
     want = x @ _device_dequant_ref(fmt, t).T
-    got = qm.qmatmul(jnp.asarray(x), ql, block_n=128, use_vpu=vpu)
+    got = qm.qmatmul(jnp.asarray(x), ql, block_n=128, impl=impl)
     # bf16 weight rounding ~0.4% relative; amplified by K-sum cancellation
     scale = np.abs(want).max()
     err = np.abs(np.asarray(got) - want).max()
-    assert err < 0.02 * scale, f"{fmt} B={batch} vpu={vpu}: err {err} vs {scale}"
+    assert err < 0.02 * scale, f"{fmt} B={batch} {impl}: err {err} vs {scale}"
 
 
 @pytest.mark.parametrize("fmt", FMTS)
@@ -113,14 +116,14 @@ def test_qmatmul_xla_baseline(rng, fmt):
 
 
 def test_qmatmul_unaligned_n(rng):
-    """N not a multiple of block_n exercises the row-padding path."""
+    """N not a power of two (320 = 5 x 64): the row tile divides N."""
     n, k = 320, 512
     w = rng.normal(size=(n, k)).astype(np.float32)
     x = rng.normal(size=(2, k)).astype(np.float32)
     t = quant_ref.quantize_q8_0(w)
     ql = qm.from_oracle(t)
     want = x @ quant_ref.dequantize_q8_0(t).T
-    got = qm.qmatmul(jnp.asarray(x), ql, block_n=256,
+    got = qm.qmatmul(jnp.asarray(x), ql, impl="kernel",
                      compute_dtype=jnp.float32)
     assert_close(got, want, atol=5e-3, rtol=5e-3, name="qmatmul unaligned N")
 
@@ -133,104 +136,177 @@ def test_nbytes_counts_packed_nibbles(rng):
 
 
 @pytest.mark.parametrize("fmt", FMTS)
-@pytest.mark.parametrize("k", [1024, 5632])   # 5632: K/32=176, repeat-hostile
-def test_qmatvec_vpu_any_k(rng, fmt, k):
-    """The 3-D VPU matvec path must handle any K multiple of 256 (incl.
-    K/32 not a multiple of 128, where pltpu.repeat cannot lower)."""
+@pytest.mark.parametrize("k", [1024, 5632, 11008])
+def test_qmatvec_any_k(rng, fmt, k):
+    """The kernel handles any K multiple of 256, incl. K/32 not a power of
+    two (5632: TinyLlama's FFN; 11008: Llama-2-7B's w_down)."""
     n = 64
     w = rng.normal(size=(n, k)).astype(np.float32)
     x = rng.normal(size=(1, k)).astype(np.float32)
     t = quant_ref.FORMATS[fmt][0](w)
     ql = qm.from_oracle(t)
     want = x @ _device_dequant_ref(fmt, t).T
-    got = qm.qmatmul(jnp.asarray(x), ql, block_n=64, use_vpu=True)
+    got = qm.qmatmul(jnp.asarray(x), ql, impl="kernel",
+                     compute_dtype=jnp.float32)
     scale = np.abs(want).max()
     err = np.abs(np.asarray(got) - want).max()
-    # K=5632 runs the bf16 selector-matmul fold -> bf16-level error
-    tol = 5e-3 if k == 1024 else 2e-2
-    assert err < tol * scale, f"{fmt} K={k}: err {err} vs scale {scale}"
+    assert err < 1e-4 * scale, f"{fmt} K={k}: err {err} vs scale {scale}"
 
 
-@pytest.mark.parametrize("batch", [2, 5, 8])
-def test_qmatvec_vpu_batched(rng, batch):
-    """B-looped VPU path for small decode batches."""
+@pytest.mark.parametrize("batch", [2, 5, 8, 16])
+def test_qmatvec_batched(rng, batch):
+    """Decode batches up to KERNEL_MAX_ROWS: x padded to 16 rows."""
     n, k = 128, 1024
     w = rng.normal(size=(n, k)).astype(np.float32)
     x = rng.normal(size=(batch, k)).astype(np.float32)
     t = quant_ref.quantize_q4_k(w)
     ql = qm.from_oracle(t)
     want = x @ _device_dequant_ref("q4_k", t).T
-    got = qm.qmatmul(jnp.asarray(x), ql, block_n=128, use_vpu=True)
+    got = qm.qmatmul(jnp.asarray(x), ql, impl="kernel",
+                     compute_dtype=jnp.float32)
     scale = np.abs(want).max()
-    # batched VPU path folds through a bf16 selector matmul
-    assert np.abs(np.asarray(got) - want).max() < 2e-2 * scale
+    assert np.abs(np.asarray(got) - want).max() < 1e-4 * scale
+
+
+@pytest.mark.parametrize("fmt", FMTS)
+@pytest.mark.parametrize("k_splits", [1, 2, 4])
+def test_kernel_k_splits(rng, fmt, k_splits):
+    """Partial sums over K splits (added in XLA) == one split."""
+    n, k = 64, 4096
+    w = rng.normal(size=(n, k)).astype(np.float32)
+    x = rng.normal(size=(3, k)).astype(np.float32)
+    t = quant_ref.FORMATS[fmt][0](w)
+    ql = qm.from_oracle(t)
+    want = x @ _device_dequant_ref(fmt, t).T
+    got = qm.qmatmul(jnp.asarray(x), ql, impl="kernel", k_splits=k_splits,
+                     compute_dtype=jnp.float32)
+    assert_close(got, want, atol=5e-3, rtol=5e-3, name=f"splits {k_splits}")
+
+
+@pytest.mark.parametrize("k,k_splits,rows", [(11008, 2, 1), (11008, 3, 3),
+                                             (5632, 5, 1)])
+def test_kernel_uneven_k_splits(rng, k, k_splits, rows):
+    """Splits that do not divide the step count: the last split takes the
+    remainder (43 steps at K=11008), and the sum is still exact."""
+    n = 64
+    w = rng.normal(size=(n, k)).astype(np.float32)
+    x = rng.normal(size=(rows, k)).astype(np.float32)
+    t = quant_ref.quantize_q4_k(w)
+    ql = qm.from_oracle(t)
+    plan = qm.kernel_plan(n, k, rows, k_splits=k_splits)
+    assert plan["chunks"] % k_splits != 0
+    want = x @ _device_dequant_ref("q4_k", t).T
+    got = qm.qmatmul(jnp.asarray(x), ql, impl="kernel", k_splits=k_splits,
+                     compute_dtype=jnp.float32)
+    assert_close(got, want, atol=5e-3, rtol=5e-3,
+                 name=f"K={k} splits {k_splits}")
 
 
 def test_misaligned_k_mxu_falls_back(rng):
-    """B > VPU limit with repeat-hostile K must still be correct (XLA
-    fallback)."""
+    """Rows past KERNEL_MAX_ROWS take XLA's dequantize + dot."""
     n, k = 64, 5632
     w = rng.normal(size=(n, k)).astype(np.float32)
-    x = rng.normal(size=(16, k)).astype(np.float32)
+    x = rng.normal(size=(qm.KERNEL_MAX_ROWS + 1, k)).astype(np.float32)
     t = quant_ref.quantize_q8_0(w)
     ql = qm.from_oracle(t)
+    assert qm.choose_impl(ql, x.shape[0], None) == "xla"
     want = x @ quant_ref.dequantize_q8_0(t).T
     got = qm.qmatmul(jnp.asarray(x), ql)
     scale = np.abs(want).max()
     assert np.abs(np.asarray(got) - want).max() < 2e-2 * scale
 
 
+@pytest.mark.parametrize("case,backend,want", [
+    (dict(fmt="q4_k", rows=1), "gpu", "kernel"),
+    (dict(fmt="q4_k", rows=32), "gpu", "kernel"),
+    (dict(fmt="q4_k", rows=33), "gpu", "xla"),         # prefill rows
+    (dict(fmt="q6_k", rows=1, unfit=True), "gpu", "xla"),  # no q6_k kernel
+    (dict(fmt="q4_k", rows=1, n=24, unfit=True), "gpu", "xla"),  # no tile
+    (dict(fmt="q4_k", rows=1), "cpu", "xla"),
+])
+def test_choose_impl(monkeypatch, rng, case, backend, want):
+    """The op choice is a rule over format, rows and N; asking for the
+    kernel where it cannot tile raises instead of falling back."""
+    from ggml_cuda_experiments_tpu.utils import platform
+    n = case.get("n", 64)
+    w = rng.normal(size=(n, 512)).astype(np.float32)
+    ql = qm.quantize(w, case["fmt"])
+    monkeypatch.setattr(platform, "backend", lambda: backend)
+    assert qm.choose_impl(ql, case["rows"]) == want
+    if case.get("unfit"):
+        with pytest.raises(ValueError):
+            qm.choose_impl(ql, case["rows"], "kernel")
+
+
 @pytest.mark.parametrize("fmt", FMTS)
-@pytest.mark.parametrize("batch", [1, 4])
-def test_qmatmul_pipelined(rng, fmt, batch):
-    """Software-pipelined dequant/dot kernel (epilogue-step grid) matches
-    the device dequant contract at bf16 accuracy."""
-    n, k = 512, 1024
+def test_prefill_rows_xla(rng, fmt):
+    """Prefill-sized products (T rows) run dequantize + one dot; x is
+    reordered to the stored column order instead of the weight."""
+    n, k, t_rows = 128, 1024, 64
     w = rng.normal(size=(n, k)).astype(np.float32)
-    x = rng.normal(size=(batch, k)).astype(np.float32)
+    x = rng.normal(size=(t_rows, k)).astype(np.float32)
     t = quant_ref.FORMATS[fmt][0](w)
     ql = qm.from_oracle(t)
     want = x @ _device_dequant_ref(fmt, t).T
-    got = qm.qmatmul(jnp.asarray(x), ql, block_n=128, pipelined=True)
-    scale = np.abs(want).max()
-    err = np.abs(np.asarray(got) - want).max()
-    assert err < 2e-2 * scale, f"{fmt} pipelined B={batch}: err {err}"
+    got = qm.qmatmul(jnp.asarray(x), ql, compute_dtype=jnp.float32)
+    assert_close(got, want, atol=5e-3, rtol=5e-3, name=f"prefill {fmt}")
 
 
 @pytest.mark.parametrize("fmt", ["q4_k", "q4_0"])
 def test_qmatmul_x_quant8(rng, fmt):
-    """Integer-dot decode path (llama.cpp Q4_K x Q8_K analog): activations
-    per-32-block int8-quantized, block dots as int8 MXU matmuls
-    (_chunk8_kernel). Accuracy class = llama.cpp CUDA decode (~0.5% rel)."""
+    """llama.cpp Q4_K x Q8 decode numerics: activations per-32-block
+    int8-quantized first. Accuracy class ~0.5% rel; the kernel and the
+    plain path agree on the quantized activations."""
     n, k = 640, 4096
     w = (rng.normal(size=(n, k)) / np.sqrt(k)).astype(np.float32)
     ql = qm.quantize(w, fmt)
     x = jnp.asarray(rng.normal(size=(1, k)).astype(np.float32))
     want = np.asarray(qm.qmatmul_xla(x, ql, compute_dtype=jnp.float32))
-    got = np.asarray(qm.qmatmul(x, ql, use_vpu=True, x_quant8=True))
+    got = np.asarray(qm.qmatmul(x, ql, impl="kernel", x_quant8=True))
     scale = np.abs(want).max()
     err = np.abs(got - want).max()
     assert err < 2e-2 * scale, f"{fmt} x_quant8: err {err} vs scale {scale}"
+    plain = np.asarray(qm.qmatmul(x, ql, impl="xla", x_quant8=True))
+    assert np.abs(got - plain).max() < 1e-2 * scale
+
+
+def test_fake_quant8_commutes_with_layout(rng):
+    """Per-32-block activation quantization maps logical blocks onto whole
+    stored blocks, so it commutes with the column interleave."""
+    for k in (1024, 12288):
+        x = jnp.asarray(rng.normal(size=(2, k)).astype(np.float32))
+        a = qm.permute_activations(qm.fake_quant8(x))
+        p = qm.permute_activations(x)
+        # quantize the permuted vector by its own stored blocks
+        cols = np.concatenate([qm._block_cols(k)] * 2)
+        pn = np.asarray(p)
+        want = np.empty_like(pn)
+        for c in np.unique(cols):
+            sel = cols == c
+            amax = np.abs(pn[:, sel]).max(axis=1, keepdims=True)
+            sc = np.where(amax == 0, 1.0, amax / 127.0)
+            want[:, sel] = np.clip(np.round(pn[:, sel] / sc), -127, 127) * sc
+        np.testing.assert_allclose(np.asarray(a), want, rtol=1e-6, atol=1e-7)
 
 
 def test_qmatmul_chunk_exact_fold(rng):
-    """The f32 chunk-fold kernel (_chunk_kernel) is exact up to f32
-    summation order: tight tolerance vs the f32 XLA reference."""
+    """The kernel in f32 is exact up to f32 summation order: tight
+    tolerance vs the f32 XLA reference."""
     n, k = 512, 4096
     w = (rng.normal(size=(n, k)) / np.sqrt(k)).astype(np.float32)
     ql = qm.quantize(w, "q4_k")
     x = jnp.asarray(rng.normal(size=(1, k)).astype(np.float32))
     want = np.asarray(qm.qmatmul_xla(x, ql, compute_dtype=jnp.float32))
-    got = np.asarray(qm.qmatmul(x, ql, use_vpu=True))
+    got = np.asarray(qm.qmatmul(x, ql, impl="kernel",
+                                compute_dtype=jnp.float32))
     scale = np.abs(want).max()
     assert np.abs(got - want).max() < 1e-4 * scale
 
 
 def test_model_x_quant8_decode(rng):
     """End-to-end decode step with cfg.x_quant8: logits stay close to the
-    exact-kernel decode (int8 activation quantization error only)."""
+    exact decode (int8 activation quantization error only)."""
     import dataclasses
-    import jax
     from ggml_cuda_experiments_tpu.models import llama
     from ggml_cuda_experiments_tpu.models.config import ModelConfig
 
@@ -251,7 +327,7 @@ def test_model_x_quant8_decode(rng):
 
 
 # ---------------------------------------------------------------------------
-# q6_k (16-element scale blocks; its own lane order and kernel)
+# q6_k (16-element scale blocks; its own lane order; plain XLA path)
 # ---------------------------------------------------------------------------
 
 def test_q6_device_dequant_matches_contract(rng):
@@ -273,33 +349,32 @@ def test_q6_k_e_encoding_close_to_exact(rng):
 
 
 def test_q6_chunk_kernel_matvec(rng):
-    """B=1 fast path (K/16 lane-aligned): accumulation error only."""
+    """B=1 q6_k matvec (global lane order): accumulation error only."""
     n, k = 256, 2048
     w = (rng.normal(size=(n, k)) / np.sqrt(k)).astype(np.float32)
     t = quant_ref.quantize_q6_k(w)
     ql = qm.from_oracle(t)
     x = rng.normal(size=(1, k)).astype(np.float32)
-    got = np.asarray(qm.qmatmul(jnp.asarray(x), ql))
+    got = np.asarray(qm.qmatmul(jnp.asarray(x), ql,
+                                compute_dtype=jnp.float32))
     want = x @ _device_dequant_ref("q6_k", t).T
-    assert_close(got, want, atol=5e-4, rtol=5e-4, name="q6_k chunk matvec")
+    assert_close(got, want, atol=5e-4, rtol=5e-4, name="q6_k matvec")
 
 
 @pytest.mark.parametrize("k", [4096, 8192])
 def test_q6_hybrid_kernel_matvec(rng, k):
-    """K % 4096 == 0 routes to the segment-local hybrid kernel (int8 MXU
-    nibble dots + exact VPU 2-bit fold). The nibble activations are
-    int8-quantized per scale block, so tolerance matches the q4 x_quant8
-    class, not the exact-f32 chunk6 kernel."""
+    """K % 4096 == 0 uses the segment-local q6 lane order."""
     n = 256
     w = (rng.normal(size=(n, k)) / np.sqrt(k)).astype(np.float32)
     t = quant_ref.quantize_q6_k(w)
     ql = qm.from_oracle(t)
     x = rng.normal(size=(1, k)).astype(np.float32)
-    got = np.asarray(qm.qmatmul(jnp.asarray(x), ql))
+    got = np.asarray(qm.qmatmul(jnp.asarray(x), ql,
+                                compute_dtype=jnp.float32))
     want = x @ _device_dequant_ref("q6_k", t).T
     denom = max(1e-6, float(np.abs(want).max()))
     rel = float(np.abs(got - want).max()) / denom
-    assert rel < 2e-2, rel
+    assert rel < 1e-4, rel
 
 
 def test_q6_dequant_roundtrip_seg_layout(rng):
@@ -311,32 +386,14 @@ def test_q6_dequant_roundtrip_seg_layout(rng):
     assert np.array_equal(got, _device_dequant_ref("q6_k", t))
 
 
-@pytest.mark.parametrize("batch", [1, 4])
-def test_q6_x_prepermuted(rng, batch):
-    """q6_k must honor x_prepermuted (cfg.hperm feeds x in the q4-class
-    std interleave; q6_k's own lane order differs — round-4 advisor found
-    the permute applied on top of the hperm order, producing garbage)."""
-    n, k = 256, 2048
-    w = (rng.normal(size=(n, k)) / np.sqrt(k)).astype(np.float32)
-    t = quant_ref.quantize_q6_k(w)
-    ql = qm.from_oracle(t)
-    x = rng.normal(size=(batch, k)).astype(np.float32)
-    xh = x[:, np.asarray(qm._perm(k))]       # hperm order, as llama.py does
-    # f32 compute: this CPU backend's DotThunk lacks bf16 dots at B>1
-    got = np.asarray(qm.qmatmul(jnp.asarray(xh), ql, x_prepermuted=True,
-                                compute_dtype=jnp.float32))
-    want = np.asarray(qm.qmatmul(jnp.asarray(x), ql,
-                                 compute_dtype=jnp.float32))
-    assert_close(got, want, atol=1e-5, rtol=1e-5, name="q6_k prepermuted")
-
-
 @pytest.mark.parametrize("batch,k", [(1, 1024), (8, 2048)])
 def test_q6_fallback_paths(rng, batch, k):
-    """Unaligned-K B=1 and batched inputs route to the XLA dequant path."""
+    """q6_k has no kernel: every row count routes to the XLA path."""
     n = 128
     w = (rng.normal(size=(n, k)) / np.sqrt(k)).astype(np.float32)
     t = quant_ref.quantize_q6_k(w)
     ql = qm.from_oracle(t)
+    assert qm.choose_impl(ql, batch) == "xla"
     x = rng.normal(size=(batch, k)).astype(np.float32)
     got = np.asarray(qm.qmatmul(jnp.asarray(x), ql))
     want = x @ _device_dequant_ref("q6_k", t).T
@@ -344,7 +401,7 @@ def test_q6_fallback_paths(rng, batch, k):
 
 
 def test_q6_quantize_entry(rng):
-    """quantize(w, 'q6_k') end-to-end (native codec when built)."""
+    """quantize(w, 'q6_k') end-to-end (native codec)."""
     w = rng.normal(size=(64, 512)).astype(np.float32)
     ql = qm.quantize(w, "q6_k")
     assert ql.fmt == "q6_k" and ql.qh is not None
@@ -354,8 +411,8 @@ def test_q6_quantize_entry(rng):
 
 
 # ---------------------------------------------------------------------------
-# segment-local interleave (K % 4096 == 0, K > 4096 — e.g. the padded 7B
-# w_down K=12288): every kernel path must agree with the stored layout
+# segment-local interleave (K % 4096 == 0, K > 4096): every path must agree
+# with the stored layout
 # ---------------------------------------------------------------------------
 
 def test_segment_layout_invariants():
@@ -374,6 +431,17 @@ def test_segment_layout_invariants():
     assert np.array_equal(lo_blk, hi_blk)
     # the stored scale column of lane j holds lane j's logical block
     assert np.array_equal(p32[col], p // 32)
+
+
+@pytest.mark.parametrize("k", [512, 1024, 5632, 11008, 12288])
+def test_block_cols_table(k):
+    """_block_cols (the kernel's scale-column table) names the stored
+    column that holds each byte-lane's logical block."""
+    p, p32 = qm._perm(k), qm._perm32(k)
+    cols = qm._block_cols(k)
+    assert cols.shape == (k // 2,) and cols.dtype == np.int32
+    assert np.array_equal(p32[cols], p[: k // 2] // 32)
+    assert np.array_equal(p32[cols], p[k // 2:] // 32)
 
 
 def test_segment_layout_permute_activations(rng):
@@ -395,87 +463,44 @@ def test_segment_dequant_contract(rng, fmt):
 
 
 @pytest.mark.parametrize("k", [8192, 12288])
-@pytest.mark.parametrize("path", ["chunk", "chunk8", "mxu_b8", "vpu_e_b2",
-                                  "pipelined", "q8_mxu_b1", "xla"])
+@pytest.mark.parametrize("path", ["kernel_b1", "kernel_xq8", "kernel_b8",
+                                  "q8_kernel_b1", "xla"])
 def test_segment_layout_all_paths(rng, k, path):
-    """Every dispatch path agrees with the oracle under the segment-local
-    layout (q4_k except the q8_0 MXU case)."""
+    """Every path agrees with the oracle under the segment-local layout
+    (q4_k except the q8_0 case)."""
     n = 256
-    fmt = "q8_0" if path == "q8_mxu_b1" else "q4_k"
+    fmt = "q8_0" if path == "q8_kernel_b1" else "q4_k"
     w = (rng.normal(size=(n, k)) / np.sqrt(k)).astype(np.float32)
     t = quant_ref.FORMATS[fmt][0](w)
     ql = qm.from_oracle(t)
-    b = {"mxu_b8": 8, "vpu_e_b2": 2, "xla": 4}.get(path, 1)
+    b = {"kernel_b8": 8, "xla": 4}.get(path, 1)
     x = rng.normal(size=(b, k)).astype(np.float32)
     want = x @ _device_dequant_ref(fmt, t).T
     xj = jnp.asarray(x)
-    if path == "chunk":
-        got = qm.qmatmul(xj, ql, use_vpu=True)
-        tol = 1e-4                       # f32 fold: summation order only
-    elif path == "chunk8":
-        got = qm.qmatmul(xj, ql, use_vpu=True, x_quant8=True)
-        tol = 2e-2                       # int8 activation quantization
-    elif path == "mxu_b8":
-        got = qm.qmatmul(xj, ql, block_n=128)
-        tol = 2e-2                       # bf16 MXU compute
-    elif path == "vpu_e_b2":
-        got = qm.qmatmul(xj, ql, block_n=128, use_vpu=True)
-        tol = 2e-2                       # bf16 selector fold
-    elif path == "pipelined":
-        got = qm.qmatmul(xj, ql, block_n=128, pipelined=True)
-        tol = 2e-2
-    elif path == "q8_mxu_b1":
-        got = qm.qmatmul(xj, ql, block_n=128, compute_dtype=jnp.float32)
-        tol = 1e-4
-    else:
+    tol = 1e-4                           # f32: summation order only
+    if path == "xla":
         got = qm.qmatmul_xla(xj, ql, compute_dtype=jnp.float32)
-        tol = 1e-4
+    elif path == "kernel_xq8":
+        got = qm.qmatmul(xj, ql, impl="kernel", x_quant8=True)
+        tol = 2e-2                       # int8 activation quantization
+    else:
+        got = qm.qmatmul(xj, ql, impl="kernel", compute_dtype=jnp.float32)
     scale = np.abs(want).max()
     err = np.abs(np.asarray(got) - want).max()
     assert err < tol * scale, f"{path} K={k}: err {err} vs scale {scale}"
 
 
-@pytest.mark.parametrize("kd", [4096, 8192])
-def test_mlp_fused_matches_unfused(rng, kd):
-    """Fused silu-MLP kernel (one Pallas call: w_gu matvec -> silu*mul ->
-    in-kernel activation quant/selector build -> w_down matvec) must match
-    the unfused two-call path with the same quantized weights."""
-    kg, nd = 4096, 256
-    wg = (rng.normal(size=(kd, kg)) / 64).astype(np.float32)
-    wu = (rng.normal(size=(kd, kg)) / 64).astype(np.float32)
-    wd = (rng.normal(size=(nd, kd)) / 64).astype(np.float32)
-    w_guf = qm.quantize(qm.reorder_gu_rows(wg, wu), "q4_k")
-    w_down = qm.quantize(wd, "q4_k")
-    assert qm.mlp_fused_supported(w_guf, w_down)
-
-    x = jnp.asarray((rng.normal(size=(1, kg))).astype(np.float32))
-    xp = qm.permute_activations(x)
-    got = np.asarray(qm.mlp_fused(xp, w_guf, w_down))
-
-    # unfused reference over the SAME quantized weights + the same
-    # per-block int8 activation quantization (x_quant8)
-    y = np.asarray(qm.qmatmul(x, w_guf, use_vpu=True, x_quant8=True))
-    mid_p = (y[:, :kd] / (1 + np.exp(-y[:, :kd]))) * y[:, kd:]
-    mid = mid_p[:, qm._inv_perm(kd)]
-    want = np.asarray(qm.qmatmul(jnp.asarray(mid), w_down,
-                                 use_vpu=True, x_quant8=True))
-    scale = max(np.abs(want).max(), 1e-6)
-    err = np.abs(got - want).max() / scale
-    assert err < 2e-2, f"rel err {err:.3e}"
-
-
 # ---------------------------------------------------------------------------
-# s6 opt-in storage encoding: every kernel path must decode it in-kernel
+# s6 opt-in storage encoding: expanded to "e" before every product
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("k", [4096, 12288])
-@pytest.mark.parametrize("path", ["chunk", "chunk8", "mxu_b16",
-                                  "pipelined", "xla"])
+@pytest.mark.parametrize("path", ["kernel_b1", "kernel_xq8", "kernel_b16",
+                                  "xla"])
 def test_s6_encoding_all_paths(rng, k, path):
-    """from_oracle(enc="s6") against the s6 dequant contract on each
-    dispatch path (the s6 wire layout: combined int8 sc|mn + bf16
-    superblock d|dmin, quant_matmul module docstring)."""
-    import jax.numpy as jnp
+    """from_oracle(enc="s6") against the s6 dequant contract on each path
+    (the s6 wire layout: combined int8 sc|mn + bf16 superblock d|dmin,
+    quant_matmul module docstring)."""
     n = 256
     w = rng.normal(size=(n, k)).astype(np.float32) / np.sqrt(k)
     t = quant_ref.quantize_q4_k(w)
@@ -485,94 +510,37 @@ def test_s6_encoding_all_paths(rng, k, path):
     want_w = _device_dequant_ref("q4_k", t, enc="s6")
     np.testing.assert_array_equal(
         np.asarray(qm.dequantize_jnp(ql)), want_w)
-    B = 16 if path == "mxu_b16" else 1
+    B = 16 if path == "kernel_b16" else 1
     x = rng.normal(size=(B, k)).astype(np.float32)
     want = x @ want_w.T
     xj = jnp.asarray(x)
-    if path == "chunk":
-        got = qm.qmatmul(xj, ql, use_vpu=True)
-        tol = 1e-4
-    elif path == "chunk8":
-        got = qm.qmatmul(xj, ql, use_vpu=True, x_quant8=True)
-        tol = 2e-2
-    elif path == "mxu_b16":
-        got = qm.qmatmul(xj, ql, block_n=128)
-        tol = 2e-2
-    elif path == "pipelined":
-        got = qm.qmatmul(xj, ql, block_n=128, pipelined=True)
+    tol = 1e-4
+    if path == "xla":
+        got = qm.qmatmul_xla(xj, ql, compute_dtype=jnp.float32)
+    elif path == "kernel_xq8":
+        got = qm.qmatmul(xj, ql, impl="kernel", x_quant8=True)
         tol = 2e-2
     else:
-        got = qm.qmatmul_xla(xj, ql, compute_dtype=jnp.float32)
-        tol = 1e-4
+        got = qm.qmatmul(xj, ql, impl="kernel", compute_dtype=jnp.float32)
     scale = np.abs(want).max()
     err = np.abs(np.asarray(got) - want).max()
     assert err < tol * scale, f"s6 {path} K={k}: err {err} vs {scale}"
 
 
-def test_s6_wof_and_mlp_fused(rng):
-    """s6 x wof layout, and the fused-MLP kernel decoding s6 in-kernel."""
-    import jax.numpy as jnp
-    k = 4096
-    w = rng.normal(size=(256, k)).astype(np.float32) / 64
-    ql = qm.from_oracle(quant_ref.quantize_q4_k(w), layout="wof",
-                        enc="s6")
-    ref = np.asarray(qm.dequantize_jnp(ql))
-    x = rng.normal(size=(1, k)).astype(np.float32)
-    y = np.asarray(qm.qmatmul(jnp.asarray(x), ql, use_vpu=True,
-                              x_quant8=True))
-    want = x @ ref.T
-    assert np.abs(y - want).max() < 2e-2 * np.abs(want).max()
-
-    kg, kd = 4096, 12288
-    wg = rng.normal(size=(kd, kg)).astype(np.float32) / 64
-    wu = rng.normal(size=(kd, kg)).astype(np.float32) / 64
-    wd = rng.normal(size=(kg, kd)).astype(np.float32) / 110
-    w_guf = qm.from_oracle(
-        quant_ref.quantize_q4_k(qm.reorder_gu_rows(wg, wu)), enc="s6")
-    w_down = qm.from_oracle(quant_ref.quantize_q4_k(wd), enc="s6")
-    assert qm.mlp_fused_supported(w_guf, w_down)
-    x = rng.normal(size=(1, kg)).astype(np.float32) * 0.05
-    xp = qm.permute_activations(jnp.asarray(x))
-    got = np.asarray(qm.mlp_fused(xp, w_guf, w_down))
-    gu_ref = np.asarray(qm.dequantize_jnp(w_guf))
-    dn_ref = np.asarray(qm.dequantize_jnp(w_down))
-    y = x @ gu_ref.T
-    g, u = y[:, :kd], y[:, kd:]
-    mid_p = (g / (1 + np.exp(-g))) * u
-    mid = np.zeros_like(mid_p)
-    mid[:, np.asarray(qm._perm(kd))] = mid_p
-    want = mid @ dn_ref.T
-    assert np.abs(got - want).max() < 2e-2 * np.abs(want).max()
-
-
-def test_plans_zero_pad_for_model_shapes():
-    """The B=1 dispatch tile plans must produce ZERO row padding for every
-    128-multiple N — a padded plan jnp.pads the whole weight INSIDE the
-    jit, which XLA does not hoist out of a decode scan (round 4: the q4_k
-    lm_head [32000, 4096] re-copied 78 MiB every step, 3x the matvec
-    cost; tools/nonlayer_probe.py)."""
-    from ggml_cuda_experiments_tpu.ops.quant_matmul import (
-        _bn_no_pad, chunk8_plan)
-
-    for n, k in ((32000, 4096), (32768, 4096), (24576, 4096),
-                 (12288, 4096), (8192, 4096),
-                 (4096, 4096), (4096, 12288), (32000, 2048), (5632, 2048)):
-        p = chunk8_plan(n, k)
-        assert p["Np"] == n, (n, k, p)
-        assert n % p["bn"] == 0
-    # no >=1024 divisor tile exists for these, but the tiered fallback
-    # still finds a ZERO-pad tile (a few extra grid steps beat re-copying
-    # the whole weight through jnp.pad on every call):
-    # 11008 = 128*2*43 -> bn=256; llama3-8b head 128256 = 128*2*3*167
-    # -> bn=768
-    for n, want_bn in ((11008, 256), (128256, 768)):
-        p = chunk8_plan(n, 4096)
-        assert p["Np"] == n and p["bn"] == want_bn, (n, p)
-    assert _bn_no_pad(11008, 4096) == 256
-    # benched shapes keep their measured-optimal plans (segmented-K cap
-    # raised to 1024 by the round-4 subtile fold: 79.7% vs 68.8 at 512)
-    assert chunk8_plan(32768, 4096)["bn"] == 4096
-    assert chunk8_plan(4096, 12288)["bn"] == 1024
-    # helper contract: only 128-multiple N; tiered fallback below
-    assert _bn_no_pad(32000, 4096) == 3200
-    assert _bn_no_pad(32001, 4096) == 0
+@pytest.mark.parametrize("n,k,rows", [
+    (12288, 4096, 1), (22016, 4096, 1), (4096, 4096, 1), (4096, 11008, 1),
+    (32000, 4096, 1), (12288, 4096, 8), (4096, 11008, 8), (32000, 4096, 16),
+])
+def test_plans_zero_pad_for_model_shapes(n, k, rows):
+    """Llama-2-7B's decode shapes (fused wqkv, fused w_gu, wo, w_down,
+    head) tile with no padding: the row tile divides N, the byte-lane
+    chunk divides K/2, the splits cover the chunks with none empty, and x
+    pads to 16 rows (one row stays unpadded)."""
+    p = qm.kernel_plan(n, k, rows)
+    assert p["ok"], p
+    assert n % p["bn"] == 0 and (k // 2) % p["bc"] == 0
+    chunks = k // 2 // p["bc"]
+    assert p["chunks"] == chunks
+    assert (p["k_splits"] - 1) * p["chunks_per_split"] < chunks \
+        <= p["k_splits"] * p["chunks_per_split"]
+    assert p["bp"] == (1 if rows == 1 else 16)

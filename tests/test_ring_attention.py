@@ -11,7 +11,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from ggml_cuda_experiments_tpu.parallel.ring_attention import (
     decode_context_parallel, ring_attention,
 )
-from ggml_cuda_experiments_tpu.ops.flash_attention import flash_attention
+from ggml_cuda_experiments_tpu.ops.attention import attention
 from ggml_cuda_experiments_tpu.ops.flash_decode import flash_decode
 from ggml_cuda_experiments_tpu.utils.harness import assert_close
 
@@ -27,8 +27,8 @@ def test_ring_attention_matches_single(rng, causal):
     k = rng.normal(size=(B, H, S, D)).astype(np.float32)
     v = rng.normal(size=(B, H, S, D)).astype(np.float32)
 
-    want = flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                           causal=causal)
+    want = attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     causal=causal)
 
     mesh = _ctx_mesh(n)
     f = shard_map(
@@ -83,8 +83,8 @@ def test_ulysses_matches_single(rng, causal):
     q = rng.normal(size=(B, H, S, D)).astype(np.float32)
     k = rng.normal(size=(B, H, S, D)).astype(np.float32)
     v = rng.normal(size=(B, H, S, D)).astype(np.float32)
-    want = flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                           causal=causal)
+    want = attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     causal=causal)
     mesh = _ctx_mesh(n)
     f = shard_map(
         lambda q, k, v: ulysses_attention(q, k, v, "ctx", causal=causal),

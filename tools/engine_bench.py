@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Continuous-batching engine throughput on the real chip (config 4 shape).
+"""Continuous-batching engine throughput on the card (config 4 shape).
 
 Measures steady-state generated tokens/s with N concurrent requests through
 the full Engine stack (paged pool, page allocator, admission, sampling) —
@@ -11,16 +11,13 @@ Usage: python tools/engine_bench.py [--model llama2-7b] [--batch 8]
 
 import argparse
 import dataclasses
-import os
 import sys
 import time
+from pathlib import Path
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
-
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-
 import numpy as np
 
 
@@ -37,34 +34,23 @@ def main():
     ap.add_argument("--native-sched", action="store_true")
     ap.add_argument("--window", type=int, default=1)
     ap.add_argument("--prefill-chunk", type=int, default=None,
-                    help="chunked prefill size (exercises the r5 "
+                    help="chunked prefill size (exercises the "
                          "all-requests-per-pass chunk dispatch)")
-    ap.add_argument("--trace", action="store_true",
-                    help="wrap the measured run in jax.profiler.trace "
-                         "(xprof artifact under /root/repo/xprof_trace)")
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="wrap the measured run in jax.profiler.trace, "
+                         "written under DIR (e.g. chiprun_out/trace)")
     args = ap.parse_args()
 
     from ggml_cuda_experiments_tpu.models.config import PRESETS
     from ggml_cuda_experiments_tpu.models import llama
     from ggml_cuda_experiments_tpu.models.engine import Engine
-    from ggml_cuda_experiments_tpu.utils import loader
+    from ggml_cuda_experiments_tpu.utils.platform import enable_compile_cache
 
-    if args.int8_kv and args.page_size % 128:
-        # Mosaic constraint on real TPU: the quantized pool's per-page
-        # scale DMA slices the lane dim by page_size, which must be
-        # 128-aligned (documented in ops/paged_attention.py)
-        print(f"page-size {args.page_size} invalid with quantized KV on "
-              f"TPU; rounding up to 128", flush=True)
-        args.page_size = 128
-
+    enable_compile_cache()
     cfg = dataclasses.replace(PRESETS[args.model], x_quant8=True)
-    ckpt = f"/tmp/bench_ckpt_{args.model}_{args.fmt}_v6.gctc"
     t0 = time.perf_counter()
-    if os.path.exists(ckpt):
-        params = loader.load_params(ckpt)
-    else:
-        params = llama.quantize_params(
-            llama.init_weights(cfg, seed=0, as_numpy=True), args.fmt)
+    params = llama.quantize_params(
+        llama.init_weights(cfg, seed=0, as_numpy=True), args.fmt)
     params = jax.device_put(params)
     jax.block_until_ready(jax.tree.leaves(params))
     print(f"params ready in {time.perf_counter()-t0:.0f}s", flush=True)
@@ -94,13 +80,13 @@ def main():
     run(args.batch)                          # compile prefill+decode
     if args.trace:
         from jax import profiler as _profiler
-        _profiler.start_trace("/root/repo/xprof_trace")
+        _profiler.start_trace(args.trace)
     # marginal over request count removes compile/fixed costs
     t_small = run(args.batch)
     t_big = run(args.batch * 3)
     if args.trace:
         _profiler.stop_trace()
-        print("trace written to /root/repo/xprof_trace", flush=True)
+        print(f"trace written to {args.trace}", flush=True)
     toks = t_big[0] - t_small[0]
     secs = t_big[1] - t_small[1]
     print(f"{args.model} {args.fmt} engine (batch {args.batch}, "

@@ -1,13 +1,13 @@
 #!/usr/bin/env python
-"""Randomized kernel correctness + timing harness — the TPU-native analog of
-the reference's ``kernel_test`` CLI (/root/reference/src/kernel_test.h:1-249).
+"""Randomized kernel correctness + timing harness — the analog of the
+reference's ``kernel_test`` CLI (/root/reference/src/kernel_test.h:1-249).
 
 Flag parity map (kernel_test.h:5-21):
     --kv-size N        KV length, min 256 (same default semantics)
     --no-kv-parallel   single-pass decode instead of split-KV + merge
     --kv-splits N      split count for the split-KV path (the analog of the
                        reference's kv_size/256 grid; its --n-warps knob has
-                       no TPU meaning — grid/block sizes replace it)
+                       no meaning here — the split grid replaces it)
     --head-dim, --heads, --kv-heads   shapes (defaults = the reference's
                        GQA config: 128 / 32 q heads / 8 kv heads,
                        kernel_test.h:2,25-27)
@@ -23,8 +23,9 @@ tolerance instead of leaving pass/fail to eyeballs (SURVEY §4).
 import argparse
 import sys
 import time
+from pathlib import Path
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
 def main() -> int:
@@ -39,7 +40,7 @@ def main() -> int:
     ap.add_argument("--quantized-kv", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cpu", action="store_true",
-                    help="force CPU backend (interpret mode)")
+                    help="force the CPU backend (plain path)")
     ap.add_argument("--tol", type=float, default=2e-2)
     args = ap.parse_args()
 
@@ -47,7 +48,8 @@ def main() -> int:
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     else:
-        jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+        from ggml_cuda_experiments_tpu.utils.platform import enable_compile_cache
+        enable_compile_cache()
     import numpy as np
     import jax.numpy as jnp
 
@@ -95,9 +97,9 @@ def main() -> int:
     reps = 20
     for _ in range(reps):
         out = fn()
-    np.asarray(out)
+    jax.block_until_ready(out)
     dt = (time.perf_counter() - t0) / reps
-    print(f"tpu time: {dt*1e3:.4f} ms")        # ~ "cuda time: %.4f ms"
+    print(f"device time: {dt*1e3:.4f} ms")     # ~ "cuda time: %.4f ms"
 
     mad, idx = max_abs_diff(got, want)
     print(diff_report("flash_decode vs oracle", got, want))

@@ -1,11 +1,10 @@
 #!/usr/bin/env python
 """REAL multi-process `jax.distributed` run of the multihost layer.
 
-Round-3 verdict item 6: everything multi-chip had only ever executed
-single-process on 8 virtual devices; `init_distributed` -> `make_pod_mesh`
--> TP step -> `HostShardedEngine` had never run under an actual
-multi-controller `jax.distributed` bootstrap. This tool does that on one
-machine: TWO OS processes, each with 4 local virtual CPU devices, forming
+The tests run everything multi-device in one process on 8 virtual devices;
+this tool runs `init_distributed` -> `make_pod_mesh` -> TP step ->
+`HostShardedEngine` under an actual multi-controller `jax.distributed`
+bootstrap, on one machine: TWO OS processes, each with 4 local virtual CPU devices, forming
 an 8-device 2-"host" pod.
 
 What each child executes (the same program, multi-controller):
@@ -13,10 +12,10 @@ What each child executes (the same program, multi-controller):
      (process_count() == 2, 8 global / 4 local devices)
   2. ``multihost.make_pod_mesh(model_parallel=2)`` — global (data=4,
      model=2) mesh; every model row stays inside one process (the
-     ICI-confinement invariant, asserted)
+     fast-interconnect confinement invariant, asserted)
   3. a cross-process ``psum`` over the data axis — proves distributed
      collectives execute (the forward pass itself keeps all collectives
-     inside a host BY DESIGN, so this is the explicit DCN-path check)
+     inside a host BY DESIGN, so this is the explicit cross-host check)
   4. ``tp.make_tp_step`` decode over the GLOBAL pod mesh — the SPMD
      program of tests/test_tp.py executed by two controllers; each child
      checksums its addressable logits shards
@@ -35,8 +34,9 @@ import os
 import socket
 import subprocess
 import sys
+from pathlib import Path
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 MODEL_PARALLEL = 2
 N_LOCAL = 4                      # virtual devices per process
@@ -70,7 +70,7 @@ def child(proc_id: int, port: int) -> None:
         assert len({d.process_index for d in row}) == 1, (
             "model axis crossed a process boundary")
 
-    # ---- explicit cross-process collective (the DCN-path check) ----
+    # ---- explicit cross-process collective (the cross-host check) ----
     from jax.sharding import NamedSharding, PartitionSpec as P
     from jax import shard_map
 

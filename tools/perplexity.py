@@ -3,7 +3,7 @@
 
 BASELINE.md's accuracy gate: "logits/perplexity match CPU llama.cpp-style
 reference at same bit-width". This evaluates next-token perplexity of a
-(quantized) model with the TPU engine and with the pure-NumPy oracle on the
+(quantized) model with the JAX engine and with the pure-NumPy oracle on the
 same token stream, and reports PPL + max logit diff.
 
 Usage:
@@ -13,8 +13,9 @@ Usage:
 
 import argparse
 import sys
+from pathlib import Path
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
 
@@ -35,8 +36,9 @@ def main():
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     else:
-        jax.config.update("jax_compilation_cache_dir",
-                          "/root/repo/.jax_cache")
+        from ggml_cuda_experiments_tpu.utils.platform import (
+            enable_compile_cache)
+        enable_compile_cache()
 
     import numpy as np
     import jax.numpy as jnp

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Decompose batch-1 decode latency into components (TPU).
+"""Decompose batch-1 decode latency into components, on the card.
 
 Times, via the chained-marginal method (dispatch-free):
   1. each distinct fused matvec shape of the model, weighted by count/layer
@@ -13,12 +13,11 @@ Usage: python tools/profile_decode.py [--model tinyllama-1.1b] [--fmt q4_k]
 import argparse
 import sys
 import time
+from pathlib import Path
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
-
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
 
 import numpy as np
 import jax.numpy as jnp
@@ -28,11 +27,12 @@ def marginal(fn_maker, n_small=16, n_big=80, reps=2):
     """Best-of marginal seconds/iter between two chained lengths."""
     def run(n):
         f = fn_maker(n)
-        np.asarray(f())          # compile+warm
-        best = min(
-            (lambda t0: (np.asarray(f()), time.perf_counter() - t0)[1])(
-                time.perf_counter())
-            for _ in range(reps))
+        jax.block_until_ready(f())          # compile + warm
+        best = np.inf
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            jax.block_until_ready(f())
+            best = min(best, time.perf_counter() - t0)
         return best
     return (run(n_big) - run(n_small)) / (n_big - n_small)
 
@@ -48,21 +48,20 @@ def main():
     from ggml_cuda_experiments_tpu.models import llama
     from ggml_cuda_experiments_tpu.ops import quant_matmul as qm
     from ggml_cuda_experiments_tpu.ops.flash_decode import flash_decode
+    from ggml_cuda_experiments_tpu.utils.device_info import chip_spec
+    from ggml_cuda_experiments_tpu.utils.platform import enable_compile_cache
 
     import dataclasses
-    # match bench.py's config: int8-quantized activations on the MXU path
+    enable_compile_cache()
+    peak_gbs = chip_spec().hbm_bytes_per_s / 1e9
+    # match bench.py's config: int8-quantized activations
     cfg = dataclasses.replace(PRESETS[args.model], x_quant8=True)
     rng = np.random.default_rng(0)
     L, d, hd = cfg.n_layers, cfg.dim, cfg.head_dim
 
-    # the REAL decode-path shapes: fused wqkv / w_gu weights, padded
-    # intermediate (quantize_params pads 11008->12288 when cheap), and the
-    # x_quant8 int8-activation kernel when the config uses it — matching
-    # llama.quantize_params/apply_linear, not the textbook per-matrix shapes
-    inter = cfg.intermediate
-    inter_p = -(-inter // 4096) * 4096
-    if inter_p > 1.15 * inter:
-        inter_p = inter
+    # the real decode-path shapes: fused wqkv / w_gu weights, as
+    # llama.quantize_params builds them
+    inter_p = cfg.intermediate
     shapes = [  # (name, N, K, count per layer)
         ("wqkv", (cfg.n_heads + 2 * cfg.n_kv_heads) * hd, d, 1),
         ("wo", d, cfg.n_heads * hd, 1),
@@ -89,7 +88,7 @@ def main():
         bw = ql.nbytes / (us / 1e6) / 1e9
         total_matvec += us * cnt * L
         print(f"matvec {name:7s} [{N:6d}x{K:6d}] x{cnt}/layer: {us:7.1f} us "
-              f"({bw:5.0f} GB/s, {100*bw/819:4.1f}%)", flush=True)
+              f"({bw:5.0f} GB/s, {100*bw/peak_gbs:4.1f}%)", flush=True)
 
     # lm_head (once per token)
     w = (rng.normal(size=(cfg.vocab_size, d)) / np.sqrt(d)).astype(np.float32)
@@ -126,8 +125,7 @@ def main():
                     o = flash_decode(q, kd, vd, lens)
                     return (o * jax.lax.rsqrt(jnp.mean(o * o) + 1e-6)
                             ).astype(jnp.bfloat16)
-                # bf16 q to match the cache dtype (mixed f32 x bf16
-                # dot_general does not lower on Mosaic)
+                # bf16 q to match the cache dtype
                 q0 = jnp.ones((1, cfg.n_heads, hd), jnp.bfloat16)
                 return jax.lax.fori_loop(0, n, body, q0)
             return f
@@ -135,16 +133,9 @@ def main():
         print(f"flash_decode [cache {args.cache}, len {ctx:5d}]: "
               f"{attn_us:7.1f} us/layer", flush=True)
 
-    # full decode step (reuse bench.py's cached quantized checkpoint)
-    import os
-    from ggml_cuda_experiments_tpu.utils import loader
-    ckpt = f"/tmp/bench_ckpt_{args.model}_{args.fmt}_v2.gctc"
-    if os.path.exists(ckpt):
-        print(f"loading cached checkpoint {ckpt}", flush=True)
-        params = loader.load_params(ckpt)
-    else:
-        params = llama.quantize_params(
-            llama.init_weights(cfg, seed=0, as_numpy=True), args.fmt)
+    # full decode step
+    params = llama.quantize_params(
+        llama.init_weights(cfg, seed=0, as_numpy=True), args.fmt)
     params = jax.device_put(params)
     cache = llama.KVCache.create(cfg, 1, args.cache)
     tok = jnp.zeros((1,), jnp.int32)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Speculative decoding TPU measurement (VERDICT r1 item 9).
+"""Speculative decoding measurement on the card.
 
-Measures, on the real chip, the fully-on-device speculative window
+Measures the fully-on-device speculative window
 (models/speculative.py::speculative_scan — draft scan + one verify pass +
 accept/rewind, zero host syncs) against plain scan decode:
 
@@ -22,15 +22,13 @@ Usage: python tools/spec_bench.py [--target llama2-7b]
 
 import argparse
 import dataclasses
-import os
 import sys
 import time
+from pathlib import Path
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
-
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
 
 import jax.numpy as jnp
 import numpy as np
@@ -43,20 +41,11 @@ def log(*a):
 def load(model, fmt="q4_k"):
     from ggml_cuda_experiments_tpu.models.config import PRESETS
     from ggml_cuda_experiments_tpu.models import llama
-    from ggml_cuda_experiments_tpu.utils import loader
 
     cfg = dataclasses.replace(PRESETS[model], x_quant8=True)
-    ckpt = f"/tmp/bench_ckpt_{model}_{fmt}_v6.gctc"
     t0 = time.perf_counter()
-    if os.path.exists(ckpt):
-        params = loader.load_params(ckpt)
-    else:
-        params = llama.quantize_params(
-            llama.init_weights(cfg, seed=0, as_numpy=True), fmt)
-        try:
-            loader.save_params(ckpt, params)
-        except Exception as e:
-            log(f"ckpt cache failed: {e}")
+    params = llama.quantize_params(
+        llama.init_weights(cfg, seed=0, as_numpy=True), fmt)
     params = jax.device_put(params)
     jax.block_until_ready(jax.tree.leaves(params))
     log(f"{model} ready in {time.perf_counter()-t0:.0f}s")
@@ -72,7 +61,7 @@ def main():
                          "checkpoint to its first K layers (shared embed/"
                          "norm/head; an offline-constructible draft whose "
                          "agreement with the target is real and "
-                         "measurable — VERDICT r3 item 7). Also measures "
+                         "measurable). Also measures "
                          "teacher-forced acceptance before the end-to-end "
                          "window bench.")
     ap.add_argument("--gamma", type=int, default=4)
